@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+a call on CPU tensors launches no kernel."""
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import sparsematrix_tpu_torch as smt
+from sparsematrix_tpu_torch.kernels import _build
+from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
+                                                    gen_sparse_index_matrix)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "sparsematrix_tpu_torch"
+FORBIDDEN = ("jax", "sparsematrix_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # match the name or its dotted prefix: "sparsematrix_tpu_torch" itself
+    # starts with "sparsematrix_tpu"
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_in_fresh_process_pulls_in_no_jax():
+    """A subprocess, because this test process (tests/conftest.py)
+    imports JAX already."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {list(_modules())!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "sparsematrix_tpu_torch.kernels.codebook" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_jax_import_in_sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    assert len(files) > 10 and bad == []
+
+
+def test_cpu_calls_launch_no_kernel():
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(gen_matrix_random(rng, 8, 96))
+    idx, table = gen_sparse_index_matrix(rng, 96, 40)
+    cbd = smt.CodebookDense.from_index_matrix(idx, table, trans=True,
+                                              device="cpu")
+    csr = smt.CodebookCSR.from_index_matrix(idx, table, trans=True,
+                                            device="cpu")
+    bell = smt.csr_to_blocked_ell(
+        smt.CSR.fromdense(cbd.todense().numpy(), device="cpu"), (8, 32),
+        device="cpu")
+    _build.launch_counts.clear()
+    for b_t in (cbd, csr, bell):
+        smt.add_mat_mat(a, b_t)
+    smt.codebook_matmul(a, cbd)
+    smt.spmm_blocked_ell(bell, a.T)
+    assert sum(_build.launch_counts.values()) == 0
