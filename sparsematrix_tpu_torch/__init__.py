@@ -9,9 +9,11 @@ version of each kernel.
 """
 from . import config
 from .formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
-                      csr_to_blocked_ell, from_numpy_fields)
-from .kernels import codebook_matmul, spmm_blocked_ell
-from .ops import add_mat_mat, spmm, spmm_densify, spmm_reference
+                      StripDense, csr_to_blocked_ell, from_numpy_fields)
+from .kernels import (DualGather, codebook_matmul, pack_dualgather,
+                      spmm_blocked_ell, spmm_dualgather, spmv_dualgather)
+from .ops import (add_mat_mat, prepare_spmv, spmm, spmm_densify,
+                  spmm_reference, spmv, spmv_reference)
 
 __all__ = [
     "config",
@@ -20,12 +22,20 @@ __all__ = [
     "CodebookCSR",
     "CodebookDense",
     "Dense",
+    "StripDense",
     "csr_to_blocked_ell",
     "from_numpy_fields",
+    "DualGather",
+    "pack_dualgather",
     "codebook_matmul",
     "spmm_blocked_ell",
+    "spmv_dualgather",
+    "spmm_dualgather",
     "add_mat_mat",
     "spmm",
     "spmm_densify",
     "spmm_reference",
+    "spmv",
+    "spmv_reference",
+    "prepare_spmv",
 ]

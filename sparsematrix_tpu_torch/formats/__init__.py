@@ -8,6 +8,7 @@ from .convert import csr_to_blocked_ell
 from .csr import CSR
 from .dense import Dense
 from .ell import BlockedELL
+from .stripdense import StripDense
 
 __all__ = [
     "SparseFormat",
@@ -20,4 +21,5 @@ __all__ = [
     "CSR",
     "Dense",
     "BlockedELL",
+    "StripDense",
 ]

@@ -1,9 +1,12 @@
 """Containers built from a JAX container's fields.
 
-The port's containers have the JAX containers' field names, so weights
-built by the JAX package carry across field by field: take each array
-field with ``np.asarray`` and each static field as it is, and hand both
-here.  Nothing of the JAX package is imported.
+The port's containers have the JAX containers' field names, so weights and
+packs built by the JAX package carry across field by field: take each
+array field with ``np.asarray`` and each static field as it is, and hand
+both here.  A nested container (a ``DualGather``'s ``t_pack``) is carried
+first and passed as it is; an optional field may be ``None``.  bf16 arrays
+(numpy's ``bfloat16`` extension type) become ``torch.bfloat16`` tensors
+bit for bit.  Nothing of the JAX package is imported.
 """
 from __future__ import annotations
 
@@ -18,23 +21,49 @@ from .codebook_dense import CodebookDense
 from .csr import CSR
 from .dense import Dense
 from .ell import BlockedELL
+from .stripdense import StripDense
 
-__all__ = ["from_numpy_fields", "KINDS"]
-
-KINDS = {cls.__name__: cls
-         for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL)}
+__all__ = ["from_numpy_fields", "kinds"]
 
 
-def from_numpy_fields(kind: str, fields: Dict[str, np.ndarray],
+def kinds() -> dict:
+    """Container classes by name.  The packed layouts live in
+    ``kernels/``, which imports this package, so they are looked up when
+    called."""
+    from ..kernels.spmv_dualgather import DualGather, PooledDG
+
+    return {cls.__name__: cls
+            for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL,
+                        StripDense, DualGather, PooledDG)}
+
+
+def _tensor(arr, dev):
+    if arr is None or not isinstance(arr, np.ndarray):
+        return arr  # None, or a container carried already
+    # np.array copies: an array taken from a JAX container is read-only
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def _static(val):
+    if isinstance(val, (bool, np.bool_)):
+        return bool(val)
+    if isinstance(val, (tuple, list)):
+        return tuple(int(v) for v in val)
+    return int(val)
+
+
+def from_numpy_fields(kind: str, fields: Dict[str, object],
                       static: Dict[str, object], device=None):
-    """The port's ``kind`` container (a class name in ``KINDS``) holding
+    """The port's ``kind`` container (a class name in ``kinds()``) holding
     ``fields`` as tensors on ``device`` and ``static`` as its static
-    fields.  Field names must match the container's exactly; an array
-    field may be ``None`` where the container allows it (``row_ids``)."""
-    cls = KINDS.get(kind)
+    fields.  Field names must match the container's exactly."""
+    cls = kinds().get(kind)
     if cls is None:
         raise ValueError(f"unknown container kind {kind!r}; "
-                         f"expected one of {sorted(KINDS)}")
+                         f"expected one of {sorted(kinds())}")
     if set(fields) != set(cls._data_fields):
         raise ValueError(f"{kind}: array fields {sorted(fields)} differ from "
                          f"{sorted(cls._data_fields)}")
@@ -42,11 +71,6 @@ def from_numpy_fields(kind: str, fields: Dict[str, np.ndarray],
         raise ValueError(f"{kind}: static fields {sorted(static)} differ from "
                          f"{sorted(cls._static_fields)}")
     dev = resolve_device(device)
-    # np.array copies: an array taken from a JAX container is read-only
-    tensors = {
-        name: None if arr is None else torch.from_numpy(np.array(arr)).to(dev)
-        for name, arr in fields.items()
-    }
-    statics = {name: tuple(int(v) for v in val) if isinstance(val, (tuple, list))
-               else int(val) for name, val in static.items()}
+    tensors = {name: _tensor(arr, dev) for name, arr in fields.items()}
+    statics = {name: _static(val) for name, val in static.items()}
     return cls(**tensors, **statics)

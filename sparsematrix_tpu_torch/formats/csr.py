@@ -87,6 +87,18 @@ class CSR(SparseFormat):
         return cls.from_arrays(indptr, c, vals, dense.shape, capacity,
                                device=device, **kw)
 
+    @classmethod
+    def from_scipy(cls, mat, capacity: int | None = None, device=None, **kw):
+        """From a ``scipy.sparse`` matrix (indices sorted per row).  The
+        host copy is kept, so ``to_scipy`` and the packers read it instead
+        of copying the tensors back."""
+        csr = mat.tocsr()
+        csr.sort_indices()
+        out = cls.from_arrays(csr.indptr, csr.indices, csr.data, csr.shape,
+                              capacity, device=device, **kw)
+        object.__setattr__(out, "_host_scipy", csr)
+        return out
+
     # -- decode ---------------------------------------------------------
     def _row_ids_or_compute(self) -> torch.Tensor:
         if self.row_ids is not None:
@@ -107,10 +119,14 @@ class CSR(SparseFormat):
         return out[:rows]
 
     def to_scipy(self):
-        """Host copy as a ``scipy.sparse.csr_matrix`` (build-time use)."""
+        """Host copy as a ``scipy.sparse.csr_matrix`` (build-time use),
+        made once per container and kept."""
         import scipy.sparse as sp
 
-        return sp.csr_matrix(
+        cached = getattr(self, "_host_scipy", None)
+        if cached is not None:
+            return cached
+        out = sp.csr_matrix(
             (
                 self.data[: self.nnz].cpu().numpy(),
                 self.indices[: self.nnz].cpu().numpy(),
@@ -118,3 +134,5 @@ class CSR(SparseFormat):
             ),
             shape=self.shape,
         )
+        object.__setattr__(self, "_host_scipy", out)
+        return out

@@ -4,9 +4,19 @@ launch (``_build.py``)."""
 from ._build import launch_counts
 from .codebook import codebook_matmul, codebook_spmm, codebook_spmm_reference
 from .spmm_blocked_ell import spmm_blocked_ell, spmm_blocked_ell_reference
+from .spmm_dualgather import spmm_dualgather, spmm_dualgather_reference
+from .spmv_dualgather import (DualGather, PooledDG, pack_dualgather,
+                              spmv_dualgather, spmv_dualgather_reference)
 
 __all__ = [
     "launch_counts",
+    "DualGather",
+    "PooledDG",
+    "pack_dualgather",
+    "spmv_dualgather",
+    "spmv_dualgather_reference",
+    "spmm_dualgather",
+    "spmm_dualgather_reference",
     "codebook_matmul",
     "codebook_spmm",
     "codebook_spmm_reference",

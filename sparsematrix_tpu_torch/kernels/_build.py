@@ -1,15 +1,22 @@
-"""Builds the CUDA sources under ``csrc/`` at first use and loads them.
+"""Builds the native sources at first use and loads them.
 
 Each ``csrc/<name>.cu`` exports one C function ``<name>`` and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/kernels/``
-at the repository root, named by a hash of the sources and flags, so an
-edit rebuilds and an unchanged tree reuses the library.  The libraries have
-a plain C interface and are loaded with ``ctypes``; nothing links against
-PyTorch, which keeps a build to seconds.  Importing this module builds
-nothing.  Without ``nvcc`` the build raises.
+at the repository root, named by a hash of the flags, the source and the
+headers it includes, so an edit rebuilds what it touches and an unchanged
+tree reuses the library.  The libraries have a plain C interface and are
+loaded with ``ctypes``; nothing links against PyTorch, which keeps a build
+to seconds.  Without ``nvcc`` the build raises.
 
-``launch_counts`` counts, per kernel, the launches that the wrappers made:
-each wrapper adds one where its kernel launched, and nowhere else.
+The host-side C++ helpers (``native/<name>.cc``, the packers' slot
+assigner) are built the same way by ``g++ -O3 -shared -fPIC`` into
+``build/host/``; ``load_host`` returns None where no ``g++`` is found, and
+the caller then takes its numpy path.  Importing this module builds
+nothing.
+
+``launch_counts`` counts, per kernel (``KERNELS``), the launches that the
+wrappers made: each wrapper adds one where its kernel launched, and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -17,26 +24,37 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "launch_counts"]
+__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build", "load", "load_host",
+           "launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("codebook_spmm", "spmm_blocked_ell")
+HOST_BUILD_DIR = _PKG.parent / "build" / "host"
+SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
+           "spmm_dualgather")
+# the launch counters: one per kernel (a source may hold several)
+KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
+           "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 launch_counts: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _funcs: Dict[str, Callable[..., int]] = {}
+_host_funcs: Dict[str, Optional[Callable[..., int]]] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -51,12 +69,27 @@ def _nvcc() -> str:
                        "sparsematrix_tpu_torch need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+def _with_includes(src: Path) -> List[Path]:
+    """``src`` and every local header it includes, directly or not."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).exists()]
+    return seen
+
+
+def _lib_path(src: Path, flags: Sequence[str], out_dir: Path) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(_with_includes(src)):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return out_dir / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
@@ -70,7 +103,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     procs = {}
     out: Dict[str, Dict[str, object]] = {}
     for name in names:
-        path = _lib_path(name)
+        path = _lib_path(CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR)
         if path.exists():
             out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
             continue
@@ -104,4 +137,33 @@ def load(name: str, argtypes: Sequence[type]) -> Callable[..., int]:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _funcs[name] = fn
+        return fn
+
+
+def load_host(name: str, symbol: str,
+              argtypes: Sequence[type]) -> Optional[Callable[..., int]]:
+    """The C function ``symbol`` of ``native/<name>.cc``, built by ``g++``
+    at first use, with ``argtypes`` set and a ``long`` result; None where
+    no ``g++`` is found.  Raises if the compile fails."""
+    with _lock:
+        if symbol in _host_funcs:
+            return _host_funcs[symbol]
+        fn = None
+        gxx = shutil.which("g++")
+        if gxx is not None:
+            src = NATIVE / f"{name}.cc"
+            path = _lib_path(src, GXX_FLAGS, HOST_BUILD_DIR)
+            if not path.exists():
+                HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+                proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {src.name}:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)
+            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_long
+        _host_funcs[symbol] = fn
         return fn

@@ -7,6 +7,12 @@ wrapper decides by the tensor's device (a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises).  So the CPU tests
 walk the same routes as the card.
 
+Low-density CSR takes the JAX package's multi-RHS routes: band-local
+matrices the strip layout, ≤16 entries a row the sliced-ELL row gather,
+the rest the dual-gather walk (``kernels/spmm_dualgather.py``), each pack
+built once per container and cached.  Packed layouts (a ``DualGather``
+from ``prepare_spmv``, a ``SlicedEllMM``) serve ``spmm`` directly.
+
 One routing differs on purpose: a ``CodebookDense`` goes to the
 hand-written fused dequantize + product kernel (``kernels/codebook.py``),
 where the JAX package sends it to XLA's lookup + dot
@@ -16,15 +22,19 @@ item.
 """
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
 
-from ..formats import CSR, BlockedELL, CodebookCSR, CodebookDense, Dense
+from ..formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
+                       StripDense)
 from ..kernels.codebook import codebook_spmm
 from ..kernels.spmm_blocked_ell import (spmm_blocked_ell,
                                         spmm_blocked_ell_reference)
+from ..kernels.spmm_dualgather import spmm_dualgather
+from ..kernels.spmv_dualgather import DualGather, pack_dualgather
+from .skew import SKEW_TODO, SkewSpmv, is_skewed, pack_skew
+from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
+from .spmv import _cached, _maybe_strip
 
 __all__ = ["spmm", "spmm_reference", "spmm_densify"]
 
@@ -63,12 +73,20 @@ def _spmm_dense_plain(A: Dense, X):
     return _matmul(A.data, X)
 
 
+def _spmm_strip_plain(A: StripDense, X):
+    # per strip, the X rows of its window, then one batched product
+    Xg = X[A.window_index()]  # (n_strips, width, k)
+    Y = torch.einsum("srw,swk->srk", A.strips, Xg.to(A.strips.dtype))
+    return Y.reshape(-1, X.shape[1])[: A.shape[0]]
+
+
 _PLAIN_IMPLS = {
     CSR: _spmm_csr_plain,
     BlockedELL: spmm_blocked_ell_reference,
     CodebookCSR: _spmm_codebook_plain,
     CodebookDense: _spmm_codebook_dense_plain,
     Dense: _spmm_dense_plain,
+    StripDense: _spmm_strip_plain,
 }
 
 
@@ -122,20 +140,51 @@ _CBD_CACHE: dict = {}
 def _codebook_dense_of(A: CodebookCSR):
     if A.shape[0] * A.shape[1] > _DENSIFY_MAX_ELEMS:
         return None  # index plane too large to materialize
-    key = id(A)
-    entry = _CBD_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
+    return _cached(_CBD_CACHE, A, _codebook_dense_build)
+
+
+def _codebook_dense_build(A: CodebookCSR):
     rid = A.to_csr()._row_ids_or_compute()[: A.nnz].cpu().numpy()
     cid = A.indices[: A.nnz].cpu().numpy()
     vi = A.val_idx[: A.nnz].cpu().numpy()
     idxm = np.full(A.shape, A.table_size, np.int64)  # sentinel = zero
     idxm[rid, cid] = vi
-    bd = CodebookDense.from_index_matrix(
+    return CodebookDense.from_index_matrix(
         idxm, A.val_table[: A.table_size].cpu().numpy(), device=A.device)
-    ref = weakref.ref(A, lambda _unused, k=key: _CBD_CACHE.pop(k, None))
-    _CBD_CACHE[key] = (ref, bd)
-    return bd
+
+
+# multi-RHS walk packs per CSR container (misses cached too)
+_DG_CACHE: dict = {}
+_STRIP_CACHE: dict = {}
+
+
+
+def _dg_pack_build(A: CSR):
+    # power-law guard, as prepare_spmv's: the hybrid skew layout
+    if is_skewed(A):
+        return pack_skew(A)
+    # ≲16 entries a row: the sliced-ELL row gather
+    if A.nnz <= 16 * A.shape[0]:
+        return pack_sliced_ell(A)
+    packed = pack_dualgather(A, k_tiles=1)
+    # below this fill the slab bytes explode; the plain product instead
+    return None if packed.fill_rate < 0.05 else packed
+
+
+def _dg_pack_of(A: CSR):
+    """The multi-RHS walk pack of a CSR (the JAX package's
+    ``_dg_pack_of``): None below 4096 entries or for a pathological
+    fill, a ``SlicedEllMM`` at ≤16 entries a row, else a k_tiles=1
+    ``DualGather``; the skew route raises."""
+    if A.nnz < 4096:
+        return None
+    return _cached(_DG_CACHE, A, _dg_pack_build)
+
+
+def _strip_of(A: CSR):
+    """Cached StripDense conversion for band-local CSR (the spmv auto
+    path's rule)."""
+    return _cached(_STRIP_CACHE, A, _maybe_strip)
 
 
 def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
@@ -150,6 +199,12 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
         )
     if method not in ("auto", "sparse", "densify"):
         raise ValueError(f"spmm: unknown method {method!r}")
+    if isinstance(A, SkewSpmv):
+        raise NotImplementedError(f"spmm: {SKEW_TODO}")
+    if isinstance(A, DualGather):
+        return spmm_dualgather(A, X)  # packed layouts serve spmv and spmm
+    if isinstance(A, SlicedEllMM):
+        return spmm_sliced_ell(A, X)
     if type(A) not in _PLAIN_IMPLS:
         raise NotImplementedError(
             f"spmm: format {type(A).__name__} is not ported yet "
@@ -167,10 +222,17 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
         if bd is not None:
             return spmm(bd, X)  # fused dequant + product kernel
     if method == "auto" and type(A) is CSR and not _should_densify(A):
-        raise NotImplementedError(
-            "spmm: low-density CSR auto-routes to the strip and dual-gather "
-            "layouts, not ported yet (ROADMAP.md, Queue 1 item 3); pass "
-            "method='sparse' for the segment-sum product")
+        # band-local CSR: the strip batched product
+        S = _strip_of(A)
+        if S is not None:
+            return _spmm_strip_plain(S, X)
+        if X.shape[1] <= 64:
+            # low-density multi-RHS: walk the dual-gather slabs per column
+            packed = _dg_pack_of(A)
+            if isinstance(packed, SlicedEllMM):
+                return spmm_sliced_ell(packed, X)
+            if packed is not None:
+                return spmm_dualgather(packed, X)
     if method == "auto" and _should_densify(A):
         return spmm_densify(A, X)
     return spmm_reference(A, X)

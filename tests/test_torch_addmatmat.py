@@ -140,9 +140,10 @@ def test_spmm_routes_and_refusals():
     dense = gen_random_dense_sparse(rng, 64, 80, density=0.01)
     A = tf.CSR.fromdense(dense, device="cpu")
     X = torch.from_numpy(rng.uniform(-1, 1, (80, 3)).astype(np.float32))
-    # low-density CSR auto-routes to layouts that are not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm(A, X)
+    # low-density CSR below the walk's 4096 entries: the plain product
+    # (the strip and dual-gather routes are tests/test_torch_spmv.py's)
+    np.testing.assert_allclose(spmm(A, X).numpy(), dense @ X.numpy(),
+                               rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(spmm(A, X, method="sparse").numpy(),
                                dense @ X.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(spmm(A, X, method="densify").numpy(),

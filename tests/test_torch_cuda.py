@@ -18,17 +18,19 @@ import numpy as np
 import pytest
 import torch
 
-from sparsematrix_tpu_torch import add_mat_mat
+from sparsematrix_tpu_torch import add_mat_mat, spmm, spmv
 from sparsematrix_tpu_torch.formats import (CSR, CodebookCSR, CodebookDense,
                                             csr_to_blocked_ell)
-from sparsematrix_tpu_torch.kernels import (_build, codebook_matmul,
-                                            codebook_spmm,
-                                            codebook_spmm_reference,
-                                            spmm_blocked_ell,
-                                            spmm_blocked_ell_reference)
+from sparsematrix_tpu_torch.kernels import (
+    _build, codebook_matmul, codebook_spmm, codebook_spmm_reference,
+    pack_dualgather, spmm_blocked_ell, spmm_blocked_ell_reference,
+    spmm_dualgather, spmm_dualgather_reference, spmv_dualgather,
+    spmv_dualgather_reference)
 from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
                                                     gen_random_dense_sparse,
-                                                    gen_sparse_index_matrix)
+                                                    gen_sparse_index_matrix,
+                                                    quantized_check,
+                                                    relative_check)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,6 +157,133 @@ def test_gradients_on_card_match_cpu(dev):
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def _dg_pack(dense, dev, bf16=False, **kw):
+    return pack_dualgather(CSR.fromdense(dense, device=dev),
+                           dtype=torch.bfloat16 if bf16 else None, **kw)
+
+
+# (shape, density, pack arguments): rows not a multiple of 128 and cols not
+# of 1024; k_tiles=1 (row 10/14) and superblocks (row 11/13) with an even
+# group (nibble idxA) and an odd one (byte idxA); two-window packs over an
+# odd window count (the last window pairs with itself); bf16 values
+DG_CASES = [
+    ((300, 1500), 0.05, dict(group=4)),
+    ((129, 1024), 0.1, dict(group=8)),
+    ((700, 3000), 0.04, dict(group=4, k_tiles=4)),
+    ((300, 3000), 0.05, dict(group=3, k_tiles=2, two_win=True)),
+    ((512, 4096), 0.08, dict(group=4, k_tiles=2, two_win=True)),
+    ((300, 5000), 0.03, dict(group=5, k_tiles=4, two_win=True)),
+    ((1100, 1100), 0.02, dict(k_tiles=8, group=16)),
+    ((256, 2048), 0.05, dict(group=4, bf16=True)),
+    ((256, 2048), 0.05, dict(group=4, k_tiles=2, two_win=True, bf16=True)),
+]
+
+
+def _dg_id(case):
+    (r, c), _, kw = case
+    return f"{r}x{c}-" + "-".join(f"{k}={v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("case", DG_CASES, ids=_dg_id)
+def test_dualgather_spmv_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + shape[1])
+    dense = gen_random_dense_sparse(rng, *shape, density=density)
+    dense[128:256] = 0  # a tile with no entries
+    A = _dg_pack(dense, dev, **kw)
+    x = torch.from_numpy(rng.standard_normal(shape[1]).astype(np.float32)).to(dev)
+    name = "spmv_dualgather" + ("_sb" if A.k_tiles > 1 else "")
+    before = _build.launch_counts[name]
+    got = spmv_dualgather(A, x)
+    assert _build.launch_counts[name] == before + 1
+    assert_kernel_close(got, spmv_dualgather_reference(A, x))
+    oracle = dense.astype(np.float64) @ x.double().cpu().numpy()
+    check = quantized_check if kw.get("bf16") else relative_check
+    assert check(got.double().cpu().numpy(), oracle)
+
+
+@pytest.mark.parametrize("k", [1, 33, 64])
+@pytest.mark.parametrize("case", DG_CASES, ids=_dg_id)
+def test_dualgather_spmm_kernel(dev, case, k):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + k)
+    dense = gen_random_dense_sparse(rng, *shape, density=density)
+    dense[128:256] = 0
+    A = _dg_pack(dense, dev, **kw)
+    X = torch.from_numpy(gen_matrix_random(rng, shape[1], k)).to(dev)
+    name = "spmm_dualgather" + ("_sb" if A.k_tiles > 1 else "")
+    before = _build.launch_counts[name]
+    got = spmm_dualgather(A, X)
+    assert _build.launch_counts[name] == before + 1
+    assert_kernel_close(got, spmm_dualgather_reference(A, X))
+
+
+@pytest.mark.parametrize("kw", [dict(group=4), dict(group=4, k_tiles=2,
+                                                     two_win=True)])
+def test_dualgather_empty_matrix(dev, kw):
+    A = _dg_pack(np.zeros((200, 1500), np.float32), dev, **kw)
+    assert float(spmv_dualgather(A, torch.ones(1500, device=dev)).abs().max()) == 0
+    Y = spmm_dualgather(A, torch.ones((1500, 3), device=dev))
+    torch.cuda.synchronize()
+    assert Y.shape == (200, 3) and float(Y.abs().max()) == 0
+
+
+def test_dualgather_kernel_refuses_bad_input(dev):
+    dense = gen_random_dense_sparse(np.random.default_rng(12), 256, 1024, 0.05)
+    A = _dg_pack(dense, dev, group=4)
+    with pytest.raises(ValueError, match="fp32"):
+        spmv_dualgather(A, torch.ones(1024, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="fp32"):
+        spmm_dualgather(A, torch.ones((1024, 2), device=dev,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        spmv_dualgather(dataclasses.replace(A, vals=A.vals.half()),
+                        torch.ones(1024, device=dev))
+
+
+@pytest.mark.parametrize("kw", [dict(group=4, with_transpose=True),
+                                dict(group=4, k_tiles=2, two_win=True)])
+def test_dualgather_gradients_on_card_match_cpu(dev, kw):
+    rng = np.random.default_rng(13)
+    dense = gen_random_dense_sparse(rng, 300, 1500, density=0.05)
+    x = rng.standard_normal(1500).astype(np.float32)
+    X = rng.standard_normal((1500, 5)).astype(np.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        A = _dg_pack(dense, d, **kw)
+        out = []
+        for fn, rhs in ((spmv_dualgather, x), (spmm_dualgather, X)):
+            v = A.vals.clone().requires_grad_()
+            r = torch.from_numpy(rhs).to(d).requires_grad_()
+            (fn(dataclasses.replace(A, vals=v), r) ** 2).sum().backward()
+            out += [v.grad.cpu(), r.grad.cpu()]
+        grads[str(d)] = out
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_spmv_spmm_auto_routes_on_card_match_cpu(dev):
+    """``spmv``/``spmm`` on a CSR through the auto routes: the pack
+    (superblock for spmv, k_tiles=1 for spmm) launches its kernel."""
+    rng = np.random.default_rng(14)
+    n = 2048  # 16 tiles: spmv packs superblocks (kt=16, two windows)
+    dense = gen_random_dense_sparse(rng, n, n, density=0.03)
+    x = rng.standard_normal(n).astype(np.float32)
+    X = rng.standard_normal((n, 8)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        A = CSR.fromdense(dense, device=d)
+        _build.launch_counts.clear()
+        y, Y = spmv(A, torch.from_numpy(x).to(d)), spmm(A, torch.from_numpy(X).to(d))
+        out[str(d)] = (y.cpu(), Y.cpu(), dict(_build.launch_counts))
+    assert out["cpu"][2] == {}
+    assert out["cuda"][2] == {"spmv_dualgather_sb": 1, "spmm_dualgather": 1}
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("fmt", ["CodebookCSR", "CodebookDense", "BlockedELL"])

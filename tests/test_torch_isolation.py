@@ -12,6 +12,7 @@ import torch
 import sparsematrix_tpu_torch as smt
 from sparsematrix_tpu_torch.kernels import _build
 from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
+                                                    gen_random_dense_sparse,
                                                     gen_sparse_index_matrix)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -79,4 +80,9 @@ def test_cpu_calls_launch_no_kernel():
         smt.add_mat_mat(a, b_t)
     smt.codebook_matmul(a, cbd)
     smt.spmm_blocked_ell(bell, a.T)
+    # the dual-gather routes: a superblock spmv pack, the k_tiles=1 walk
+    A = smt.CSR.fromdense(gen_random_dense_sparse(rng, 2048, 2048, 0.01),
+                          device="cpu")
+    smt.spmv(A, torch.ones(2048))
+    smt.spmm(A, torch.ones((2048, 3)))
     assert sum(_build.launch_counts.values()) == 0

@@ -1,0 +1,117 @@
+"""Dual-gather SpMM (``kernels/spmm_dualgather.py``) against the JAX
+package.
+
+The JAX ``spmm_dualgather`` runs its Pallas kernels in interpret mode on
+the CPU, as the JAX package's own tests run them
+(``tests/test_dualgather.py``); the port's wrapper runs its plain version.
+Both are held against an fp64 oracle at the JAX tests' tolerance (rtol
+2e-3, atol 0.5), on packs built by the port and on JAX packs carried
+across.  The kernels are held against the plain version on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sparsematrix_tpu.formats as jf
+import sparsematrix_tpu_torch.formats as tf
+from sparsematrix_tpu.kernels.spmm_dualgather import \
+    spmm_dualgather as jax_spmm_dualgather
+from sparsematrix_tpu_torch.kernels import spmm_dualgather
+from sparsematrix_tpu_torch.utils.testutils import (gen_random_dense_sparse,
+                                                    quantized_check)
+
+jdg = importlib.import_module("sparsematrix_tpu.kernels.spmv_dualgather")
+tdg = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_dualgather")
+
+CPU = "cpu"
+TOL = dict(rtol=2e-3, atol=0.5)
+
+
+def carry(ref):
+    arrays, statics = {}, {}
+    for f in dataclasses.fields(ref):
+        v = getattr(ref, f.name)
+        if f.metadata.get("static", False):
+            statics[f.name] = v
+        else:
+            arrays[f.name] = None if v is None else np.asarray(v)
+    return tf.from_numpy_fields("DualGather", arrays, statics, device=CPU)
+
+
+def packs(dense, **kw):
+    bf16 = kw.pop("bf16", False)
+    port = tdg.pack_dualgather(tf.CSR.fromdense(dense, device=CPU),
+                               dtype=torch.bfloat16 if bf16 else None, **kw)
+    ref = jdg.pack_dualgather(jf.CSR.fromdense(dense),
+                              dtype=jnp.bfloat16 if bf16 else None, **kw)
+    return port, ref
+
+
+@pytest.mark.parametrize("n,k,kw", [
+    (640, 6, dict(group=4, k_tiles=1)),                 # row 14
+    (1100, 13, dict(k_tiles=4, group=8, two_win=True)),  # row 13, nibble
+    (640, 5, dict(group=4, k_tiles=2, bf16=True)),      # single window
+    (640, 5, dict(group=3, k_tiles=2, two_win=True)),   # plain-byte idxA
+])
+def test_spmm_matches_jax(n, k, kw):
+    rng = np.random.default_rng(8)
+    dense = gen_random_dense_sparse(rng, n, n, density=0.02)
+    X = rng.standard_normal((n, k)).astype(np.float32)
+    bf16 = kw.get("bf16", False)
+    port, ref = packs(dense, **kw)
+    want = np.asarray(jax_spmm_dualgather(ref, jnp.asarray(X)))
+    oracle = dense.astype(np.float64) @ X
+    for pk in (port, carry(ref)):
+        got = spmm_dualgather(pk, torch.from_numpy(X))
+        assert got.dtype == torch.float32 and got.shape == (n, k)
+        got = got.numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        if bf16:
+            assert quantized_check(got, oracle)
+        else:
+            np.testing.assert_allclose(got, oracle, **TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(group=4, k_tiles=1),
+                                dict(group=4, k_tiles=1, with_transpose=True)])
+def test_spmm_grads_match_jax(kw):
+    """d/dX and d/dvals against ``jax.grad`` of <W, A X> (the JAX backward
+    is the plain scatter whether or not the pack holds A^T)."""
+    n, k = 384, 4
+    rng = np.random.default_rng(9)
+    dense = gen_random_dense_sparse(rng, n, n, density=0.02)
+    X = rng.standard_normal((n, k)).astype(np.float32)
+    W = rng.standard_normal((n, k)).astype(np.float32)
+    port, ref = packs(dense, **kw)
+
+    def loss(v, Xv):
+        return jnp.vdot(jnp.asarray(W), jax_spmm_dualgather(
+            dataclasses.replace(ref, vals=v), Xv))
+
+    want_dv, want_gX = (np.asarray(a) for a in
+                        jax.grad(loss, argnums=(0, 1))(ref.vals,
+                                                       jnp.asarray(X)))
+    v = port.vals.clone().requires_grad_()
+    Xt = torch.from_numpy(X).requires_grad_()
+    Y = spmm_dualgather(dataclasses.replace(port, vals=v), Xt)
+    (Y * torch.from_numpy(W)).sum().backward()
+    np.testing.assert_allclose(Xt.grad.numpy(), want_gX, **TOL)
+    np.testing.assert_allclose(Xt.grad.numpy(),
+                               dense.T.astype(np.float64) @ W, **TOL)
+    np.testing.assert_allclose(v.grad.numpy(), want_dv, **TOL)
+    assert (v.grad.numpy()[port.vals.numpy() == 0] == 0).all()
+
+
+def test_spmm_rejects_split_kt1_pack():
+    dense = gen_random_dense_sparse(np.random.default_rng(1), 256, 256,
+                                    density=0.05)
+    port, _ = packs(dense, group=4)
+    split = dataclasses.replace(port, splits=(1,))
+    with pytest.raises(ValueError, match="superblock pack"):
+        spmm_dualgather(split, torch.zeros(256, 3))
