@@ -10,8 +10,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
 
 1. device — the card's name and ``nvidia-smi`` name and power limit.
 2. build — compiles every kernel from ``sparsematrix_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together, and the host slot assigner
-   (``native/assign.cc``) with ``g++``.
+   ``nvcc`` per source, all started together, and the host libraries
+   (``native/*.cc``: the slot assigners, the rowlane packer, the colourers)
+   with ``g++``, one process each, beside them.
 3. check — each kernel against its plain PyTorch version on the card, and
    both against an fp64 host oracle, at the main path's shapes and the
    bench's: codebook 117×1023×2047 (fp32 and bf16 X), (29,200,300),
@@ -24,29 +25,44 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    bench's two packs (fp32 group 128 on 8 tiles with two windows, bf16
    group 512 on 32 tiles); n = 4096 at 128 entries a
    row (``csr_spmv/auto``); n = 1024 at 64 a row (k_tiles = 1); ``spmm``
-   at k = 32 on both XL packs.
+   at k = 32 on both XL packs.  Then slice 3: the JAX bench's
+   ``spgemm_xl`` operands (n = 16384, d = 0.001) planned by
+   ``spgemm_plan_packed`` as the auto route packs them (octet, both
+   outputs), as superblock and rowlane (CSC out) and as an octet with a
+   ``rem`` section (host seconds each); the octet, superblock and rowlane
+   kernels on the pair program, the rowlane kernel at L = 4 and both at
+   bf16 on the A operand, and every window-permute stage of the B (q = 1)
+   and C (q > 1) permutations.
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
    4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
    on the XL CSR through the auto routes, ``spmm`` on ``prepare_spmv``'s
-   pack, and ``spmv`` at n = 4096 and n = 1024.  Every launch counter is
-   set to 0 just before each path and read just after, and each kernel
-   must have launched.
+   pack, and ``spmv`` at n = 4096 and n = 1024; then the SpGEMM numeric
+   phase on each packed plan (CSR and CSC out) and one-shot
+   ``spgemm(A, B, output="csc")``, ``spmv``/``spmm`` (k = 32) on the JAX
+   bench's two ``spmv_skew`` power-law CSRs (14.4 M and 11.7 M nnz)
+   through the skew route, and ``spmv`` on the ``spmv_clustered`` CSR
+   through ``prepare_spmv``'s auto (octet), superblock and rowlane
+   layouts.  Every launch counter is set to 0 just before each path and
+   read just after, and each kernel must have launched.
 5. timings — device time of one call, from CUDA events around each of 30
    calls, each queued behind its own spin kernel (so the host's cost of
    issuing a call does not show) with the 50 MB L2 flushed before it,
    median after warm-up: kernel, plain version and one PyTorch yardstick
-   call per
-   kernel and shape (cuSPARSE through ``torch.sparse_csr_tensor`` for the
-   dual-gather kernels), beside the least time the card could take
-   (``bound_ms``).  Then ``add_mat_mat``, ``spmv`` and ``spmm`` end to
-   end: latency as the caller waits for it (host clock) and device time.
+   call per kernel and shape (cuSPARSE through ``torch.sparse_csr_tensor``
+   for the SpMV kernels, one ``torch.gather`` of the composed window
+   index for the window permute), beside the least time the card could
+   take (``bound_ms``).  Then the paths end to end: latency as the caller
+   waits for it (host clock) and device time, beside cuBLAS, cuSPARSE
+   (``torch.sparse.mm`` of the two CSR operands for SpGEMM, its symbolic
+   phase included) or one ``torch.gather``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -173,6 +189,67 @@ def bf16_rounded(sp):
     return out
 
 
+def spgemm_xl_operands(n: int = 16384, density: float = 0.001):
+    """The JAX bench's ``spgemm_xl`` point (``bench/suite.py:1077-1096``):
+    ``sps.random`` patterns from ``random_state`` 7 and 8, values uniform
+    in ±1000 from ``default_rng(7)``, A's then B's.  Returns (A, B) as
+    scipy CSR."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(7)
+    sa = sps.random(n, n, density=density, random_state=7, format="csr",
+                    dtype=np.float32)
+    sb = sps.random(n, n, density=density, random_state=8, format="csr",
+                    dtype=np.float32)
+    sa.data = rng.uniform(-1000, 1000, sa.nnz).astype(np.float32)
+    sb.data = rng.uniform(-1000, 1000, sb.nnz).astype(np.float32)
+    return sa, sb
+
+
+def clustered_matrix(n: int = 512 * 128, nnz: int = 80_000):
+    """The JAX bench's ``spmv_clustered`` point (``bench/suite.py:744-791``):
+    512 row tiles whose ~1.2 entries a row all land in one 1024-column
+    window, from ``default_rng(0)``.  Returns (scipy CSR, x)."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(0)
+    rows = g.integers(0, n, size=nnz)
+    cols = g.integers(0, 1024, size=nnz)
+    vals = g.uniform(-1000, 1000, nnz).astype(np.float32)
+    sp = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    sp.sum_duplicates()
+    return sp, g.standard_normal(n).astype(np.float32)
+
+
+def container_bytes(obj) -> int:
+    """Bytes of every tensor of a pack or plan, nested ones included."""
+    if torch.is_tensor(obj):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(container_bytes(o) for o in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(container_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def pack_to_scipy(packed, slot_row_col):
+    """The entries an octet/superblock/rowlane pack stores, as a host scipy
+    CSR (``slot_row_col`` is its module's slot decode); an octet's ``rem``
+    section included."""
+    import scipy.sparse as sps
+
+    row, col = slot_row_col(packed)
+    vals = packed.vals.reshape(row.shape)
+    keep = vals != 0
+    out = sps.coo_matrix(
+        (vals[keep].float().cpu().numpy(),
+         (row[keep].cpu().numpy(), col[keep].cpu().numpy())),
+        shape=packed.shape).tocsr()
+    rem = getattr(packed, "rem", None)
+    return out if rem is None else (out + pack_to_scipy(rem, slot_row_col))
+
+
 def plane_bytes(packed) -> int:
     return sum(t.numel() * t.element_size()
                for t in (packed.idxA, packed.idxB, packed.vals,
@@ -198,14 +275,29 @@ def main() -> int:
         _spmm_blocked_ell_cuda, spmm_blocked_ell_reference)
     from sparsematrix_tpu_torch.kernels.spmm_dualgather import (
         _spmm_dualgather_cuda, spmm_dualgather_reference)
-    from sparsematrix_tpu_torch.ops import (add_mat_mat, prepare_spmv, spmm,
-                                            spmv)
+    from sparsematrix_tpu_torch.kernels.window_permute import (
+        _window_permute_cuda, window_permute_reference)
+    from sparsematrix_tpu_torch.ops import (ClosPermutePlan, add_mat_mat,
+                                            apply_permutation, pack_skew,
+                                            prepare_spmv,
+                                            spgemm, spgemm_apply_packed,
+                                            spgemm_apply_packed_csc,
+                                            spgemm_plan_packed, spmm, spmv)
+    from sparsematrix_tpu_torch.ops.permute_clos import (
+        _apply_clos_impl as clos_apply)
     from sparsematrix_tpu_torch.utils.testutils import (
         gen_matrix_random, gen_random_dense_sparse, gen_sparse_index_matrix,
-        quantized_check, relative_check)
+        gen_zipf_csr, quantized_check, relative_check)
+    octmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmv_octet")
+    sbmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmv_superblock")
+    rlmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmv_rowlane")
 
     dev = torch.device("cuda")
     failures = []
+    t_start = time.perf_counter()
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -223,9 +315,8 @@ def main() -> int:
     def build_host():
         t = time.perf_counter()
         try:
-            host["fn"] = _build.load_host("assign", "smtpu_assign_dualgather",
-                                          dgmod._ASSIGN_ARGTYPES)
-        except RuntimeError as e:  # g++ failed: reported below
+            host["libs"] = _build.build_host()
+        except RuntimeError as e:  # no g++, or it failed: reported below
             host["error"] = str(e)
         host["seconds"] = time.perf_counter() - t
 
@@ -234,17 +325,17 @@ def main() -> int:
     built = _build.build()
     host_thread.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "host_assigner": {"built": host.get("fn") is not None,
-                            "seconds": host.get("seconds"),
-                            "error": host.get("error")},
+          "host_libraries": {"built": sorted(host.get("libs", {})),
+                             "seconds": host.get("seconds"),
+                             "error": host.get("error")},
           "kernels": {name: {
               "seconds": info["seconds"],
               "ptxas": [ln.strip() for ln in str(info["log"]).splitlines()
                         if "Used" in ln or "spill" in ln]}
               for name, info in built.items()}})
-    if host.get("fn") is None:
-        print("chip_smoke: FAILED: the host slot assigner did not build: "
-              f"{host.get('error', 'no g++')}", file=sys.stderr)
+    if "libs" not in host:
+        print("chip_smoke: FAILED: the host libraries did not build: "
+              f"{host.get('error')}", file=sys.stderr)
         return 1
 
     # -- inputs -----------------------------------------------------------
@@ -425,6 +516,163 @@ def main() -> int:
             (case, P, rhs, sp, 2 if bf16 else 4))
         del got, plain
 
+    # slice 3: SpGEMM through the packed pair program, the skew route and
+    # the octet/superblock/rowlane layouts of prepare_spmv
+    def s3_pack(label, build):
+        t = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        inner = getattr(out, "p_packed", getattr(out, "base", out))
+        emit({"phase": "pack", "pack": label,
+              "seconds": time.perf_counter() - t,
+              "kind": type(out).__name__, "layout": type(inner).__name__,
+              "fill": getattr(inner, "fill_rate", None),
+              "bytes": container_bytes(out),
+              "hub_rows_cols": ([int(out.hub_rows.numel()),
+                                 int(out.hub_cols.numel())]
+                                if hasattr(out, "hub_rows") else None)})
+        return out
+
+    t = time.perf_counter()
+    sa, sb = spgemm_xl_operands()
+    A_g = CSR.from_scipy(sa, device=dev)
+    B_g = CSR.from_scipy(sb, device=dev)
+    want_c = (sa.astype(np.float64) @ sb.astype(np.float64)).tocsr()
+    want_c.sort_indices()
+    want_ct = want_c.T.tocsr()
+    want_ct.sort_indices()
+    emit({"phase": "inputs", "matrix": "spgemm_xl", "shape": list(sa.shape),
+          "nnz_a": int(sa.nnz), "nnz_b": int(sb.nnz), "c_nnz": int(want_c.nnz),
+          "seconds": time.perf_counter() - t})
+    pp_auto = s3_pack("spgemm_plan_packed XL auto, outputs csr+csc",
+                      lambda: spgemm_plan_packed(A_g, B_g))
+    pp_sb = s3_pack("spgemm_plan_packed XL superblock, outputs csc",
+                    lambda: spgemm_plan_packed(A_g, B_g, layout="superblock",
+                                               outputs=("csc",)))
+    pp_rl = s3_pack("spgemm_plan_packed XL rowlane, outputs csc",
+                    lambda: spgemm_plan_packed(A_g, B_g, layout="rowlane",
+                                               outputs=("csc",)))
+    pp_trim = s3_pack("spgemm_plan_packed XL octet trim_group=8, outputs csc",
+                      lambda: spgemm_plan_packed(A_g, B_g, layout="octet",
+                                                 outputs=("csc",),
+                                                 trim_group=8))
+    plans = {"b_perm": pp_auto.b_perm, "c_perm": pp_auto.c_perm}
+    emit({"phase": "inputs", "plan": "spgemm_xl auto",
+          "p_packed": type(pp_auto.p_packed).__name__,
+          "vals": list(pp_auto.p_packed.vals.shape),
+          "rem": pp_auto.p_packed.rem is not None,
+          "trim_rem": pp_trim.p_packed.rem is not None,
+          **{k: {"kind": type(v).__name__, "q": getattr(v, "q", None),
+                 "R": getattr(v, "R", None)} for k, v in plans.items()}})
+    if not (isinstance(pp_auto.p_packed, octmod.Octet)
+            and isinstance(pp_sb.p_packed, sbmod.SellSuperblock)
+            and isinstance(pp_rl.p_packed, rlmod.SellRowLane)
+            and pp_trim.p_packed.rem is not None
+            and all(isinstance(v, ClosPermutePlan) for v in plans.values())
+            and want_c.nnz == pp_auto.c_nnz):
+        failures.append("spgemm_xl plans are not the expected layouts")
+    # the pair program P (the same for every layout) on the host, for the
+    # oracle of its SpMV and the cuSPARSE yardstick
+    sp_p = pack_to_scipy(pp_rl.p_packed, rlmod._slot_row_col)
+    xb = {}  # B's values in each plan's column order
+    for key, pp in (("auto", pp_auto), ("sb", pp_sb), ("rl", pp_rl),
+                    ("trim", pp_trim)):
+        xb[key] = apply_permutation(pp.b_perm, B_g.data)
+
+    s3_cases = {}  # kernel -> [(case, run kernel, run plain, scipy matrix,
+    #                            value bytes, x)]
+
+    def s3_check(kname, case, pk, kern, plain, sp, x_dev, oracle):
+        got = kern(pk, x_dev)
+        want_plain = plain(pk, x_dev)
+        torch.cuda.synchronize()
+        errs[(kname, case)] = check(kname, case, got, want_plain, oracle,
+                                    False)
+        bf16 = pk.vals.dtype == torch.bfloat16
+        s3_cases.setdefault(kname, []).append(
+            (case, lambda: kern(pk, x_dev), lambda: plain(pk, x_dev), sp,
+             2 if bf16 else 4, x_dev))
+        del got, want_plain
+
+    for kname, case, pk, key, kern, plain in [
+            ("spmv_octet", "spgemm_xl P auto octet", pp_auto.p_packed, "auto",
+             octmod._spmv_octet_cuda, octmod.spmv_octet_reference),
+            ("spmv_octet", "spgemm_xl P octet trim_group=8 (rem)",
+             pp_trim.p_packed, "trim", octmod._spmv_octet_cuda,
+             octmod.spmv_octet_reference),
+            ("spmv_superblock", "spgemm_xl P superblock", pp_sb.p_packed,
+             "sb", sbmod._spmv_superblock_cuda,
+             sbmod.spmv_superblock_reference),
+            ("spmv_rowlane", "spgemm_xl P rowlane L=1", pp_rl.p_packed, "rl",
+             rlmod._rowlane_forward, rlmod.spmv_sell_rowlane_reference)]:
+        # C^T's values in CSC order are P @ x, row for row
+        s3_check(kname, case, pk, kern, plain, sp_p, xb[key], want_ct.data)
+
+    # bf16 values and L = 4 on the spgemm_xl A operand (16 entries a row)
+    x_a = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        sa.shape[1]).astype(np.float32)).to(dev)
+    oracle_a = bf16_rounded(sa) @ x_a.double().cpu().numpy()
+    s3_check("spmv_rowlane", "spgemm_xl A rowlane L=4 bf16",
+             rlmod.pack_sell_rowlane(A_g, lanes_per_row=4,
+                                     dtype=torch.bfloat16),
+             rlmod._rowlane_forward, rlmod.spmv_sell_rowlane_reference, sa,
+             x_a, oracle_a)
+    s3_check("spmv_superblock", "spgemm_xl A superblock bf16",
+             sbmod.pack_superblock(A_g, dtype=torch.bfloat16),
+             sbmod._spmv_superblock_cuda, sbmod.spmv_superblock_reference,
+             sa, x_a, oracle_a)
+
+    # the window permute on both Clos geometries of the main path: every
+    # stage, kernel against plain, and the whole apply against x[g]
+    wp_stage_inputs = {}
+    for key, plan, gmap, n_src in [
+            ("b_perm", pp_auto.b_perm, pp_auto.b_gather, B_g.capacity),
+            ("c_perm", pp_auto.c_perm, pp_auto.c_gather, pp_auto.c_nnz)]:
+        x_src = torch.from_numpy(np.random.default_rng(12).standard_normal(
+            n_src).astype(np.float32)).to(dev)
+        case = f"spgemm_xl {key} q={plan.q} R={plan.R}"
+        got = clos_apply(plan, x_src)
+        want_plain = clos_apply(plan, x_src, stage=window_permute_reference)
+        torch.cuda.synchronize()
+        xpad = np.concatenate([x_src.double().cpu().numpy(), [0.0]])
+        oracle = xpad[np.minimum(gmap.long().cpu().numpy(), n_src)]
+        errs[("window_permute", case)] = check(
+            "window_permute", case, got, want_plain, oracle, False)
+        if not torch.equal(got, want_plain):
+            failures.append(f"check window_permute {case}: not bit-exact")
+        wp_stage_inputs[key] = (case, plan)
+        del got, want_plain
+
+    # the skew route's matrices (bench/suite.py:794-813) and the clustered
+    # low-degree one (suite.py:744-791)
+    skew = {}
+    for tag, col_zipf in (("rowzipf", False), ("hubcols", True)):
+        t = time.perf_counter()
+        sp_z = gen_zipf_csr(9, 32768, 32768, 32768 * 512, col_zipf=col_zipf)
+        x_z = np.random.default_rng(9).standard_normal(32768).astype(
+            np.float32)
+        X_z = np.random.default_rng(10).standard_normal((32768, 32)).astype(
+            np.float32)
+        A_z = CSR.from_scipy(sp_z, device=dev)
+        emit({"phase": "inputs", "matrix": f"spmv_skew {tag}",
+              "shape": list(sp_z.shape), "nnz": int(sp_z.nnz),
+              "max_row_deg": int(np.diff(sp_z.indptr).max()),
+              "seconds": time.perf_counter() - t})
+        # the skew pack alone, as the auto route builds it (the main path
+        # packs again at its first call: ``seconds`` there includes it)
+        s3_pack(f"spmv_skew {tag} pack_skew", lambda A_z=A_z: pack_skew(A_z))
+        sp64 = sp_z.astype(np.float64)
+        skew[tag] = (sp_z, A_z, torch.from_numpy(x_z).to(dev),
+                     torch.from_numpy(X_z).to(dev), sp64 @ x_z, sp64 @ X_z)
+    sp_clu, x_clu_np = clustered_matrix()
+    A_clu = CSR.from_scipy(sp_clu, device=dev)
+    x_clu = torch.from_numpy(x_clu_np).to(dev)
+    y_clu = sp_clu.astype(np.float64) @ x_clu_np
+    P_clu = {layout: s3_pack(f"clustered prepare_spmv layout={layout}",
+                             lambda layout=layout: prepare_spmv(
+                                 A_clu, layout=layout))
+             for layout in ("octet", "superblock", "rowlane")}
+
     # -- 4. main path -------------------------------------------------------
     oracle = (c_np.astype(np.float64)
               + a_np.astype(np.float64) @ bt_dense.T.astype(np.float64))
@@ -496,6 +744,64 @@ def main() -> int:
         y64 = y.double().cpu().numpy()
         ok = (y64.shape == want.shape and bool(np.isfinite(y64).all())
               and relative_check(y64, want) and counts[expect] > 0)
+        emit({"phase": "main_path", "path": name, "shape": list(y.shape),
+              "seconds": seconds, "launches": counts, "oracle_check": ok,
+              "ok": ok})
+        if not ok:
+            failures.append(f"main path {name}")
+        del y
+    # slice 3: the SpGEMM numeric phase on each pair-program layout, the
+    # one-shot spgemm (its planning included in ``seconds``), spmv/spmm on
+    # the power-law matrices and spmv on the clustered one (first calls
+    # pack)
+    s3_paths = [
+        ("spgemm_apply_packed XL auto (octet), CSR out",
+         lambda: spgemm_apply_packed(pp_auto, B_g.data).data, want_c.data,
+         ("spmv_octet", "window_permute")),
+        ("spgemm_apply_packed_csc XL auto (octet)",
+         lambda: spgemm_apply_packed_csc(pp_auto, B_g.data).data,
+         want_ct.data, ("spmv_octet", "window_permute")),
+        ("spgemm_apply_packed_csc XL superblock",
+         lambda: spgemm_apply_packed_csc(pp_sb, B_g.data).data, want_ct.data,
+         ("spmv_superblock", "window_permute")),
+        ("spgemm_apply_packed_csc XL rowlane",
+         lambda: spgemm_apply_packed_csc(pp_rl, B_g.data).data, want_ct.data,
+         ("spmv_rowlane", "window_permute")),
+        ("spgemm(A, B, output='csc') XL",
+         lambda: spgemm(A_g, B_g, output="csc").data, want_ct.data,
+         ("spmv_octet", "window_permute")),
+    ]
+    for tag, (sp_z, A_z, x_z, X_z, y_want, Y_want) in skew.items():
+        s3_paths += [
+            (f"spmv spmv_skew {tag} (auto)",
+             lambda A_z=A_z, x_z=x_z: spmv(A_z, x_z), y_want,
+             ("spmv_dualgather_sb", "window_permute")),
+            (f"spmm spmv_skew {tag} k=32 (auto)",
+             lambda A_z=A_z, X_z=X_z: spmm(A_z, X_z), Y_want,
+             ("spmm_dualgather_sb",))]
+    s3_paths += [
+        ("spmv(prepare_spmv(clustered)) (auto: octet)",
+         lambda: spmv(prepare_spmv(A_clu), x_clu), y_clu, ("spmv_octet",))]
+    s3_paths += [
+        (f"spmv prepare_spmv(clustered, layout={layout})",
+         lambda P=P: spmv(P, x_clu), y_clu, (kname,))
+        for layout, P, kname in (
+            ("octet", P_clu["octet"], "spmv_octet"),
+            ("superblock", P_clu["superblock"], "spmv_superblock"),
+            ("rowlane", P_clu["rowlane"], "spmv_rowlane"))]
+    for name, run, want, expect in s3_paths:
+        _build.launch_counts.clear()
+        t = time.perf_counter()
+        y = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {kn: _build.launch_counts[kn] for kn in _build.KERNELS}
+        for kn, v in counts.items():
+            main_launches[kn] += v
+        y64 = y.double().cpu().numpy()
+        ok = (y64.shape == want.shape and bool(np.isfinite(y64).all())
+              and relative_check(y64, want)
+              and all(counts[kn] > 0 for kn in expect))
         emit({"phase": "main_path", "path": name, "shape": list(y.shape),
               "seconds": seconds, "launches": counts, "oracle_check": ok,
               "ok": ok})
@@ -608,6 +914,52 @@ def main() -> int:
         for case, P, rhs, sp, vb in cases:
             dg_rows[(kname, case)] = time_dg(kname, case, P, rhs, sp, vb)
 
+    # slice 3: the pair-program SpMV kernels (and the bf16 / L=4 cases),
+    # with cuSPARSE on the same matrix; the window permute one stage at a
+    # time, with one torch.gather of the composed window index
+    s3_rows = {}
+    for kname, cases in s3_cases.items():
+        for case, kern, plain, sp, vb, x_dev in cases:
+            rows_, cols_ = sp.shape
+            flops = 2.0 * sp.nnz
+            nbytes = sp.nnz * (vb + 4) + 4 * cols_ + 4 * rows_
+            bms, by = bound(flops, nbytes)
+            if id(sp) not in yardsticks:
+                yardsticks[id(sp)] = cusparse(sp)
+            S = yardsticks[id(sp)]
+            row = {"kernel": kname, "case": case, "ms": dev_ms(kern),
+                   "plain_ms": dev_ms(plain),
+                   "library_ms": dev_ms(lambda S=S, x_dev=x_dev: S @ x_dev),
+                   "launches": main_launches[kname], "bound_ms": bms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes}
+            emit({"phase": "timing", **row})
+            s3_rows[(kname, case)] = row
+    for key, (case, plan) in wp_stage_inputs.items():
+        for st, trip in enumerate(plan.planes):
+            W = trip[0].shape[0]
+            v = torch.randn((W, 8, 128), device=dev)
+            slot = trip[2].long()
+            chunk = torch.gather(trip[1].long(), 2, slot)
+            posn = torch.gather(trip[0].long().reshape(W, 1024), 1,
+                                (chunk * 128 + slot).reshape(W, 1024))
+            src = (torch.arange(W, device=dev)[:, None] * 1024
+                   + chunk.reshape(W, 1024) * 128 + posn).reshape(-1)
+            flat = v.reshape(-1)
+            nbytes = 11.0 * v.numel()  # 4 B in, 4 B out, 3 B of planes
+            bms, by = bound(0.0, nbytes)
+            row = {"kernel": "window_permute", "case": f"{case} stage {st}",
+                   "ms": dev_ms(lambda v=v, t=trip: _window_permute_cuda(v, *t)),
+                   "plain_ms": dev_ms(
+                       lambda v=v, t=trip: window_permute_reference(v, *t)),
+                   "library_ms": dev_ms(
+                       lambda f=flat, i=src: torch.gather(f, 0, i)),
+                   "launches": main_launches["window_permute"],
+                   "bound_ms": bms, "bound_by": by, "flops": 0.0,
+                   "bytes": nbytes}
+            emit({"phase": "timing", **row})
+            s3_rows[("window_permute", row["case"])] = row
+            del v, slot, chunk, posn, src, flat
+
     # the slice's end-to-end metric: AddMatMat through the public API, as
     # its caller waits for it (wall_ms) and as the card spends it
     # (device_ms), beside one dense fp32 product of the same shape
@@ -643,10 +995,52 @@ def main() -> int:
               "cusparse_wall_ms": wall_ms(lib_run),
               "cusparse_device_ms": dev_ms(lib_run)})
 
+    # slice 3 end to end: the SpGEMM numeric phase (packs cached), beside
+    # torch.sparse.mm of the two CSR operands (cuSPARSE, its symbolic phase
+    # included); the Clos apply of C's permutation beside one torch.gather
+    # of the map; spmv/spmm on the power-law CSR beside cuSPARSE
+    SA, SB = cusparse(sa), cusparse(sb)
+    lib_mm = lambda: torch.sparse.mm(SA, SB)  # noqa: E731
+    for label, run in [
+            ("spgemm_apply_packed XL auto (octet), CSR out",
+             lambda: spgemm_apply_packed(pp_auto, B_g.data)),
+            ("spgemm_apply_packed_csc XL auto (octet)",
+             lambda: spgemm_apply_packed_csc(pp_auto, B_g.data)),
+            ("spgemm_apply_packed_csc XL superblock",
+             lambda: spgemm_apply_packed_csc(pp_sb, B_g.data)),
+            ("spgemm_apply_packed_csc XL rowlane",
+             lambda: spgemm_apply_packed_csc(pp_rl, B_g.data))]:
+        emit({"phase": "e2e", "path": label, "wall_ms": wall_ms(run),
+              "device_ms": dev_ms(run),
+              "cusparse_spgemm_wall_ms": wall_ms(lib_mm),
+              "cusparse_spgemm_device_ms": dev_ms(lib_mm)})
+    y_c = torch.randn(pp_auto.c_nnz, device=dev)
+    g_c = pp_auto.c_gather.long().clamp(max=pp_auto.c_nnz - 1)
+    emit({"phase": "e2e", "path": "apply_permutation spgemm_xl c_perm "
+          f"(q={pp_auto.c_perm.q})",
+          "wall_ms": wall_ms(lambda: apply_permutation(pp_auto.c_perm, y_c)),
+          "device_ms": dev_ms(lambda: apply_permutation(pp_auto.c_perm, y_c)),
+          "gather_device_ms": dev_ms(lambda: torch.gather(y_c, 0, g_c))})
+    for tag, (sp_z, A_z, x_z, X_z, _, _) in skew.items():
+        S_z = cusparse(sp_z)
+        for label, run, lib_run in [
+                (f"spmv spmv_skew {tag} (auto)",
+                 lambda A_z=A_z, x_z=x_z: spmv(A_z, x_z),
+                 lambda S_z=S_z, x_z=x_z: S_z @ x_z),
+                (f"spmm spmv_skew {tag} k=32 (auto)",
+                 lambda A_z=A_z, X_z=X_z: spmm(A_z, X_z),
+                 lambda S_z=S_z, X_z=X_z: S_z @ X_z)]:
+            emit({"phase": "e2e", "path": label, "wall_ms": wall_ms(run),
+                  "device_ms": dev_ms(run),
+                  "cusparse_wall_ms": wall_ms(lib_run),
+                  "cusparse_device_ms": dev_ms(lib_run)})
+        del S_z
+
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = []
     for name, src, replaces, row, case in [
             ("codebook_spmm", "sparsematrix_tpu_torch/csrc/codebook_spmm.cu",
@@ -679,6 +1073,26 @@ def main() -> int:
             "replaces": f"sparsematrix_tpu/kernels/{replaces}",
             "launches": main_launches[name],
             "max_abs_err": errs[(name, case)], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "case": case})
+    for name, src, replaces, case in [
+            ("window_permute", "window_permute.cu", "permute_pallas.py:61",
+             f"{wp_stage_inputs['c_perm'][0]} stage 0"),
+            ("spmv_octet", "spmv_octet.cu", "spmv_octet.py:452",
+             "spgemm_xl P auto octet"),
+            ("spmv_rowlane", "spmv_rowlane.cu", "spmv_rowlane.py:397",
+             "spgemm_xl P rowlane L=1"),
+            ("spmv_superblock", "spmv_superblock.cu", "spmv_superblock.py:179",
+             "spgemm_xl P superblock")]:
+        row = s3_rows[(name, case)]
+        err_case = case.rsplit(" stage ", 1)[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sparsematrix_tpu_torch/csrc/{src}",
+            "replaces": f"sparsematrix_tpu/kernels/{replaces}",
+            "launches": main_launches[name],
+            "max_abs_err": errs[(name, err_case)], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": case})

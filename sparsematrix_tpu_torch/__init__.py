@@ -10,10 +10,16 @@ version of each kernel.
 from . import config
 from .formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
                       StripDense, csr_to_blocked_ell, from_numpy_fields)
-from .kernels import (DualGather, codebook_matmul, pack_dualgather,
-                      spmm_blocked_ell, spmm_dualgather, spmv_dualgather)
-from .ops import (add_mat_mat, prepare_spmv, spmm, spmm_densify,
-                  spmm_reference, spmv, spmv_reference)
+from .kernels import (DualGather, Octet, SellRowLane, SellSuperblock,
+                      codebook_matmul, pack_dualgather, pack_octet,
+                      pack_sell_rowlane, pack_superblock, spmm_blocked_ell,
+                      spmm_dualgather, spmv_dualgather, spmv_octet,
+                      spmv_sell_rowlane, spmv_superblock, window_permute)
+from .ops import (SkewSpmv, SpGEMMPacked, add_mat_mat, apply_permutation,
+                  pack_skew, plan_permutation_auto, prepare_spmv, spgemm,
+                  spgemm_apply_packed, spgemm_apply_packed_csc,
+                  spgemm_plan_packed, spmm, spmm_densify, spmm_reference,
+                  spmv, spmv_reference)
 
 __all__ = [
     "config",
@@ -31,6 +37,25 @@ __all__ = [
     "spmm_blocked_ell",
     "spmv_dualgather",
     "spmm_dualgather",
+    "Octet",
+    "pack_octet",
+    "spmv_octet",
+    "SellRowLane",
+    "pack_sell_rowlane",
+    "spmv_sell_rowlane",
+    "SellSuperblock",
+    "pack_superblock",
+    "spmv_superblock",
+    "window_permute",
+    "SkewSpmv",
+    "pack_skew",
+    "apply_permutation",
+    "plan_permutation_auto",
+    "spgemm",
+    "SpGEMMPacked",
+    "spgemm_plan_packed",
+    "spgemm_apply_packed",
+    "spgemm_apply_packed_csc",
     "add_mat_mat",
     "spmm",
     "spmm_densify",

@@ -3,8 +3,10 @@
 The port's containers have the JAX containers' field names, so weights and
 packs built by the JAX package carry across field by field: take each
 array field with ``np.asarray`` and each static field as it is, and hand
-both here.  A nested container (a ``DualGather``'s ``t_pack``) is carried
-first and passed as it is; an optional field may be ``None``.  bf16 arrays
+both here.  A nested container (a ``DualGather``'s ``t_pack``, an
+``Octet``'s ``rem``, a ``SkewSpmv``'s ``base``) is carried first and
+passed as it is; an optional field may be ``None``; a tuple of arrays (a
+``ClosPermutePlan``'s plane triples) is carried element by element.  bf16 arrays
 (numpy's ``bfloat16`` extension type) become ``torch.bfloat16`` tensors
 bit for bit.  Nothing of the JAX package is imported.
 """
@@ -31,13 +33,24 @@ def kinds() -> dict:
     ``kernels/``, which imports this package, so they are looked up when
     called."""
     from ..kernels.spmv_dualgather import DualGather, PooledDG
+    from ..kernels.spmv_octet import Octet
+    from ..kernels.spmv_rowlane import SellRowLane
+    from ..kernels.spmv_superblock import SellSuperblock
+    from ..ops.permute import PermutePlan
+    from ..ops.permute_clos import ClosPermutePlan
+    from ..ops.skew import SkewSpmv
+    from ..ops.spgemm import SpGEMMPacked, SpGEMMPlan
 
     return {cls.__name__: cls
             for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL,
-                        StripDense, DualGather, PooledDG)}
+                        StripDense, DualGather, PooledDG, Octet, SellRowLane,
+                        SellSuperblock, PermutePlan, ClosPermutePlan,
+                        SkewSpmv, SpGEMMPlan, SpGEMMPacked)}
 
 
 def _tensor(arr, dev):
+    if isinstance(arr, (tuple, list)):
+        return tuple(_tensor(a, dev) for a in arr)
     if arr is None or not isinstance(arr, np.ndarray):
         return arr  # None, or a container carried already
     # np.array copies: an array taken from a JAX container is read-only

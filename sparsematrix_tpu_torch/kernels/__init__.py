@@ -7,6 +7,13 @@ from .spmm_blocked_ell import spmm_blocked_ell, spmm_blocked_ell_reference
 from .spmm_dualgather import spmm_dualgather, spmm_dualgather_reference
 from .spmv_dualgather import (DualGather, PooledDG, pack_dualgather,
                               spmv_dualgather, spmv_dualgather_reference)
+from .spmv_octet import (Octet, pack_octet, spmm_octet, spmv_octet,
+                         spmv_octet_reference)
+from .spmv_rowlane import (SellRowLane, pack_sell_rowlane, spmv_sell_rowlane,
+                           spmv_sell_rowlane_reference)
+from .spmv_superblock import (SellSuperblock, pack_superblock,
+                              spmv_superblock, spmv_superblock_reference)
+from .window_permute import window_permute, window_permute_reference
 
 __all__ = [
     "launch_counts",
@@ -17,6 +24,21 @@ __all__ = [
     "spmv_dualgather_reference",
     "spmm_dualgather",
     "spmm_dualgather_reference",
+    "Octet",
+    "pack_octet",
+    "spmv_octet",
+    "spmv_octet_reference",
+    "spmm_octet",
+    "SellRowLane",
+    "pack_sell_rowlane",
+    "spmv_sell_rowlane",
+    "spmv_sell_rowlane_reference",
+    "SellSuperblock",
+    "pack_superblock",
+    "spmv_superblock",
+    "spmv_superblock_reference",
+    "window_permute",
+    "window_permute_reference",
     "codebook_matmul",
     "codebook_spmm",
     "codebook_spmm_reference",

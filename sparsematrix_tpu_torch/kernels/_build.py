@@ -8,11 +8,12 @@ tree reuses the library.  The libraries have a plain C interface and are
 loaded with ``ctypes``; nothing links against PyTorch, which keeps a build
 to seconds.  Without ``nvcc`` the build raises.
 
-The host-side C++ helpers (``native/<name>.cc``, the packers' slot
-assigner) are built the same way by ``g++ -O3 -shared -fPIC`` into
-``build/host/``; ``load_host`` returns None where no ``g++`` is found, and
-the caller then takes its numpy path.  Importing this module builds
-nothing.
+The host-side C++ helpers (``native/<name>.cc``: the packers' slot
+assigners, the rowlane packer, the colorers of the permutation planner
+and of SpGEMM) are built the same way by ``g++ -O3 -shared -fPIC
+-pthread`` into ``build/host/`` (``build_host`` starts them all at once);
+``load_host`` returns None where no ``g++`` is found, and the caller then
+takes its numpy path.  Importing this module builds nothing.
 
 ``launch_counts`` counts, per kernel (``KERNELS``), the launches that the
 wrappers made: each wrapper adds one where its kernel launched, and
@@ -32,8 +33,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["SOURCES", "KERNELS", "BUILD_DIR", "build", "load", "load_host",
-           "launch_counts"]
+__all__ = ["SOURCES", "KERNELS", "HOST_SOURCES", "BUILD_DIR", "build",
+           "build_host", "load", "load_host", "launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,13 +42,17 @@ NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 HOST_BUILD_DIR = _PKG.parent / "build" / "host"
 SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
-           "spmm_dualgather")
+           "spmm_dualgather", "window_permute", "spmv_octet", "spmv_rowlane",
+           "spmv_superblock")
 # the launch counters: one per kernel (a source may hold several)
 KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
-           "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb")
+           "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb",
+           "window_permute", "spmv_octet", "spmv_rowlane", "spmv_superblock")
+# the host sources (native/<name>.cc)
+HOST_SOURCES = ("assign", "rowlane", "octet", "color")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -140,6 +145,45 @@ def load(name: str, argtypes: Sequence[type]) -> Callable[..., int]:
         return fn
 
 
+def _host_compile(name: str, gxx: str):
+    """Starts ``g++`` on ``native/<name>.cc`` unless its library is built;
+    returns (library path, the process or None)."""
+    src = NATIVE / f"{name}.cc"
+    path = _lib_path(src, GXX_FLAGS, HOST_BUILD_DIR)
+    if path.exists():
+        return path, None
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.Popen([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return path, (proc, tmp)
+
+
+def _host_finish(name: str, path: Path, started) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}.cc:\n{log}")
+    os.replace(tmp, path)
+
+
+def build_host(names: Sequence[str] = HOST_SOURCES) -> Dict[str, str]:
+    """Compiles every host library of ``names`` that is not built yet, one
+    ``g++`` per source, all started together; returns the library paths.
+    Raises if no ``g++`` is found or a compile fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host libraries need it")
+    with _lock:
+        started = {name: _host_compile(name, gxx) for name in names}
+        for name, (path, proc) in started.items():
+            _host_finish(name, path, proc)
+    return {name: str(path) for name, (path, _) in started.items()}
+
+
 def load_host(name: str, symbol: str,
               argtypes: Sequence[type]) -> Optional[Callable[..., int]]:
     """The C function ``symbol`` of ``native/<name>.cc``, built by ``g++``
@@ -151,17 +195,8 @@ def load_host(name: str, symbol: str,
         fn = None
         gxx = shutil.which("g++")
         if gxx is not None:
-            src = NATIVE / f"{name}.cc"
-            path = _lib_path(src, GXX_FLAGS, HOST_BUILD_DIR)
-            if not path.exists():
-                HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-                proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed for {src.name}:\n"
-                                       f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, path)
+            path, started = _host_compile(name, gxx)
+            _host_finish(name, path, started)
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_long

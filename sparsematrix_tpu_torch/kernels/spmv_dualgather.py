@@ -54,7 +54,7 @@ _LANES = 128
 _T = 128  # rows per tile (lane = row slot, no lane sharing)
 
 _SPILL_TODO = ("the pooled spill tail (spill_cap, kernel row 12) is not "
-               "ported yet (ROADMAP.md, Queue 2 item 1)")
+               "ported yet (ROADMAP.md, Queue 2 item 2)")
 
 
 @sparse_container

@@ -8,10 +8,13 @@ version, a CUDA tensor launches the kernel or raises).  So the CPU tests
 walk the same routes as the card.
 
 Low-density CSR takes the JAX package's multi-RHS routes: band-local
-matrices the strip layout, ≤16 entries a row the sliced-ELL row gather,
-the rest the dual-gather walk (``kernels/spmm_dualgather.py``), each pack
-built once per container and cached.  Packed layouts (a ``DualGather``
-from ``prepare_spmv``, a ``SlicedEllMM``) serve ``spmm`` directly.
+matrices the strip layout, power-law matrices the skew hybrid
+(``ops/skew.py``), ≤16 entries a row the sliced-ELL row gather, the rest
+the dual-gather walk (``kernels/spmm_dualgather.py``), each pack built
+once per container and cached.  Packed layouts (a ``DualGather`` or a
+``SkewSpmv`` from ``prepare_spmv``, a ``SlicedEllMM``) serve ``spmm``
+directly; an ``Octet`` pack raises (its multi-RHS kernel, row 16, is not
+ported yet).
 
 One routing differs on purpose: a ``CodebookDense`` goes to the
 hand-written fused dequantize + product kernel (``kernels/codebook.py``),
@@ -32,7 +35,10 @@ from ..kernels.spmm_blocked_ell import (spmm_blocked_ell,
                                         spmm_blocked_ell_reference)
 from ..kernels.spmm_dualgather import spmm_dualgather
 from ..kernels.spmv_dualgather import DualGather, pack_dualgather
-from .skew import SKEW_TODO, SkewSpmv, is_skewed, pack_skew
+from ..kernels.spmv_octet import Octet, spmm_octet
+from ..kernels.spmv_rowlane import SellRowLane
+from ..kernels.spmv_superblock import SellSuperblock
+from .skew import SkewSpmv, is_skewed, pack_skew, spmm_skew
 from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
 from .spmv import _cached, _maybe_strip
 
@@ -175,7 +181,7 @@ def _dg_pack_of(A: CSR):
     """The multi-RHS walk pack of a CSR (the JAX package's
     ``_dg_pack_of``): None below 4096 entries or for a pathological
     fill, a ``SlicedEllMM`` at ≤16 entries a row, else a k_tiles=1
-    ``DualGather``; the skew route raises."""
+    ``DualGather``, or the skew hybrid for power-law matrices."""
     if A.nnz < 4096:
         return None
     return _cached(_DG_CACHE, A, _dg_pack_build)
@@ -200,11 +206,16 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
     if method not in ("auto", "sparse", "densify"):
         raise ValueError(f"spmm: unknown method {method!r}")
     if isinstance(A, SkewSpmv):
-        raise NotImplementedError(f"spmm: {SKEW_TODO}")
+        return spmm_skew(A, X)
     if isinstance(A, DualGather):
         return spmm_dualgather(A, X)  # packed layouts serve spmv and spmm
+    if isinstance(A, Octet):
+        return spmm_octet(A, X)
     if isinstance(A, SlicedEllMM):
         return spmm_sliced_ell(A, X)
+    if isinstance(A, (SellRowLane, SellSuperblock)):
+        # as in the JAX package, these layouts serve SpMV only
+        raise TypeError(f"spmm: unsupported format {type(A).__name__}")
     if type(A) not in _PLAIN_IMPLS:
         raise NotImplementedError(
             f"spmm: format {type(A).__name__} is not ported yet "
@@ -229,6 +240,8 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
         if X.shape[1] <= 64:
             # low-density multi-RHS: walk the dual-gather slabs per column
             packed = _dg_pack_of(A)
+            if isinstance(packed, SkewSpmv):
+                return spmm_skew(packed, X)
             if isinstance(packed, SlicedEllMM):
                 return spmm_sliced_ell(packed, X)
             if packed is not None:

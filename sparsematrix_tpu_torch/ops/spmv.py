@@ -9,9 +9,11 @@ product runs its kernel wrapper, which decides by the tensor's device (a
 CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises).  So the CPU tests walk the same routes as the card.
 
-Where the JAX package would pick a layout the port does not have yet
-(octet, superblock, rowlane, skew, SELL), the port raises
-``NotImplementedError`` naming its ROADMAP item.
+The layouts: dual-gather (the default), strip (band-local), octet (≲2
+entries a row), the rowlane superblock (scattered patterns), rowlane, and
+the skew hybrid (power-law matrices).  Only the pooled dual-gather spill
+tail (``spill_cap``) raises ``NotImplementedError``, naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -24,18 +26,14 @@ from ..formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
 from ..kernels.spmm_blocked_ell import spmm_blocked_ell_reference
 from ..kernels.spmv_dualgather import (DualGather, pack_dualgather,
                                        spmv_dualgather)
-from .skew import SKEW_TODO, SkewSpmv, is_skewed, pack_skew
+from ..kernels.spmv_octet import Octet, pack_octet, spmv_octet
+from ..kernels.spmv_rowlane import (SellRowLane, pack_sell_rowlane,
+                                    spmv_sell_rowlane)
+from ..kernels.spmv_superblock import (SellSuperblock, pack_superblock,
+                                       spmv_superblock)
+from .skew import SkewSpmv, is_skewed, pack_skew, spmv_skew
 
 __all__ = ["spmv", "spmv_reference", "prepare_spmv"]
-
-_TODO = {
-    "octet": ("the octet layout (≤2 entries a row; kernel rows 15-16) is "
-              "not ported yet (ROADMAP.md, Queue 2 item 3)"),
-    "superblock": ("the rowlane superblock layout (kernel row 9) is not "
-                   "ported yet (ROADMAP.md, Queue 2 item 4)"),
-    "rowlane": ("the rowlane layout (kernel row 7) is not ported yet "
-                "(ROADMAP.md, Queue 2 item 5)"),
-}
 
 
 # ---------------------------------------------------------------------------
@@ -130,20 +128,23 @@ def prepare_spmv(A: CSR, layout: str = "auto", skew: str = "auto",
                  **pack_kwargs):
     """Explicit build step: pack a CSR for the fast SpMV kernel.
 
-    ``layout``: ``"dualgather"``, ``"strip"`` (band-local matrices), or
-    ``"auto"``: strip when the matrix is band-local and dense enough
-    within the band, else the dual-gather layout with the JAX package's
-    k_tiles/group table.  The JAX package's ``"superblock"``, ``"octet"``,
-    ``"rowlane"`` and ``"skew"`` layouts, and the auto routes that pick
-    them, raise ``NotImplementedError``.  The pack lies on the CSR's
-    device.
+    ``layout``: ``"dualgather"``, ``"rowlane"``, ``"superblock"``,
+    ``"strip"`` (band-local matrices), ``"octet"``, ``"skew"``, or
+    ``"auto"``: the skew hybrid for power-law matrices, strip when the
+    matrix is band-local and dense enough within the band, octet at ≲2
+    entries a row, else the dual-gather layout with the JAX package's
+    k_tiles/group table, and the rowlane superblock when that pack comes
+    out step-bound (group ≤ 2 over many tiles).  The pack lies on the
+    CSR's device.
     """
     if layout == "dualgather":
         return pack_dualgather(A, **pack_kwargs)
+    if layout == "superblock":
+        return pack_superblock(A, **pack_kwargs)
     if layout == "strip":
         return StripDense.from_csr(A, **pack_kwargs)
-    if layout in ("superblock", "octet"):
-        raise NotImplementedError(f"prepare_spmv: {_TODO[layout]}")
+    if layout == "octet":
+        return pack_octet(A, **pack_kwargs)
     if layout == "skew":
         return pack_skew(A, **pack_kwargs)
     if layout not in ("auto", "rowlane"):
@@ -158,7 +159,7 @@ def prepare_spmv(A: CSR, layout: str = "auto", skew: str = "auto",
             return strip
         if A.nnz <= 2 * A.shape[0] and A.shape[0] >= 2048:
             # ≲2 entries a row: the octet layout spans 8 tiles per slab
-            raise NotImplementedError(f"prepare_spmv: {_TODO['octet']}")
+            return pack_octet(A)
     if layout == "auto":
         n_tiles = -(-A.shape[0] // 128)
         # the JAX package's table: two-window slabs on superblocks; at
@@ -188,8 +189,9 @@ def prepare_spmv(A: CSR, layout: str = "auto", skew: str = "auto",
         # scattered patterns (~1 slab a tile) go to the rowlane superblock
         if packed.group > 2 or packed.n_tiles <= 256:
             return packed
-        raise NotImplementedError(f"prepare_spmv: {_TODO['superblock']}")
-    raise NotImplementedError(f"prepare_spmv: {_TODO['rowlane']}")
+        sb_kwargs = {k: v for k, v in pack_kwargs.items() if k == "dtype"}
+        return pack_superblock(A, **sb_kwargs)
+    return pack_sell_rowlane(A, **pack_kwargs)
 
 
 def _maybe_strip(A: CSR):
@@ -218,16 +220,22 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     of ``prepare_spmv``; a CSR is packed at its first call and the pack
     cached on the container."""
     if isinstance(A, SkewSpmv):
-        raise NotImplementedError(f"spmv: {SKEW_TODO}")
+        return spmv_skew(A, x)
     if isinstance(A, DualGather):
         return spmv_dualgather(A, x)
+    if isinstance(A, Octet):
+        return spmv_octet(A, x)
+    if isinstance(A, SellRowLane):
+        return spmv_sell_rowlane(A, x)
+    if isinstance(A, SellSuperblock):
+        return spmv_superblock(A, x)
     if x.ndim != 1 or x.shape[0] != A.shape[1]:
         raise ValueError(
             f"spmv: x shape {tuple(x.shape)} incompatible with matrix {A.shape}")
     if type(A) is CSR:
         packed = _auto_pack(A)
-        if isinstance(packed, DualGather):
-            return spmv_dualgather(packed, x)
-        if isinstance(packed, StripDense):
-            return _spmv_strip_plain(packed, x)
+        if packed is not None:
+            if isinstance(packed, StripDense):
+                return _spmv_strip_plain(packed, x)
+            return spmv(packed, x)
     return spmv_reference(A, x)

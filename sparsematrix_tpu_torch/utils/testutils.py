@@ -12,6 +12,8 @@ port imports nothing of the JAX package).  Mirrors the reference harness:
     outlier_frac 1e-4) — loose because values span ±1000 and summation
     order differs between implementations.
   * ``quantized_check`` — the scale-floored policy for bf16/quantized paths.
+  * ``gen_zipf_csr`` — power-law rows (and columns), a copy of the JAX
+    bench's generator (``sparsematrix_tpu/bench/suite.py:716-741``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ __all__ = [
     "gen_matrix_random",
     "gen_sparse_index_matrix",
     "gen_random_dense_sparse",
+    "gen_zipf_csr",
     "relative_check",
     "quantized_check",
     "REF_TOL",
@@ -93,3 +96,29 @@ def quantized_check(result, oracle, med_tol: float = 0.02,
     scale = np.abs(oracle).max()
     rel = np.abs(result - oracle) / (np.abs(oracle) + 0.02 * max(scale, 1e-30))
     return bool(np.median(rel) < med_tol and np.quantile(rel, 0.99) < q99_tol)
+
+
+def gen_zipf_csr(seed, n, m, total_nnz, alpha=0.8, col_zipf=False):
+    """Power-law structure: row degrees follow a rank-α power law
+    ``deg_i ∝ (i+1)^-α`` shuffled over rows (α=0.8 ≈ web/social-graph
+    out-degree); ``col_zipf`` draws column targets from the same law (hub
+    columns), else uniform.  Values uniform in ±1000.  Duplicates merge,
+    so the realized nnz is slightly under ``total_nnz``.  Returns a scipy
+    CSR matrix."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(seed)
+    w = (np.arange(n) + 1.0) ** (-alpha)
+    deg = np.maximum(1, np.round(w * (total_nnz / w.sum()))).astype(
+        np.int64)
+    g.shuffle(deg)
+    rows_ = np.repeat(np.arange(n), deg)
+    if col_zipf:
+        wc = (np.arange(m) + 1.0) ** (-alpha)
+        cols_ = g.choice(m, size=rows_.size, p=wc / wc.sum())
+    else:
+        cols_ = g.integers(0, m, rows_.size)
+    data_ = g.uniform(-1000, 1000, rows_.size).astype(np.float32)
+    sp = sps.coo_matrix((data_, (rows_, cols_)), shape=(n, m)).tocsr()
+    sp.sum_duplicates()
+    return sp

@@ -23,9 +23,17 @@ from sparsematrix_tpu_torch.formats import (CSR, CodebookCSR, CodebookDense,
                                             csr_to_blocked_ell)
 from sparsematrix_tpu_torch.kernels import (
     _build, codebook_matmul, codebook_spmm, codebook_spmm_reference,
-    pack_dualgather, spmm_blocked_ell, spmm_blocked_ell_reference,
-    spmm_dualgather, spmm_dualgather_reference, spmv_dualgather,
-    spmv_dualgather_reference)
+    pack_dualgather, pack_octet, pack_sell_rowlane, pack_superblock,
+    spmm_blocked_ell, spmm_blocked_ell_reference, spmm_dualgather,
+    spmm_dualgather_reference, spmv_dualgather, spmv_dualgather_reference,
+    spmv_octet, spmv_octet_reference, spmv_sell_rowlane,
+    spmv_sell_rowlane_reference, spmv_superblock, spmv_superblock_reference,
+    window_permute, window_permute_reference)
+from sparsematrix_tpu_torch.ops import (apply_permutation, pack_skew,
+                                        plan_clos_permutation, spgemm,
+                                        spgemm_apply_packed,
+                                        spgemm_apply_packed_csc,
+                                        spgemm_plan_packed)
 from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
                                                     gen_random_dense_sparse,
                                                     gen_sparse_index_matrix,
@@ -306,3 +314,232 @@ def test_add_mat_mat_on_card_matches_cpu(dev, fmt):
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
                                atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# slice 3: rowlane, superblock, octet and the window permute
+
+
+def _sparse(rng, shape, density):
+    import scipy.sparse as sps
+
+    sp = sps.random(*shape, density=density, random_state=int(rng.integers(
+        1 << 30)), format="csr", dtype=np.float32)
+    sp.data = rng.uniform(-1000, 1000, sp.nnz).astype(np.float32)
+    return sp
+
+
+def _spmv_case(dev, sp, pack, spmv_fn, ref_fn, name, n_launch=1, **kw):
+    """The kernel against its plain version on the same CUDA tensors, the
+    launch counted, and the oracle."""
+    A = pack(CSR.from_scipy(sp, device=dev), **kw)
+    rng = np.random.default_rng(sp.shape[1])
+    x = torch.from_numpy(rng.standard_normal(sp.shape[1]).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts[name]
+    got = spmv_fn(A, x)
+    assert _build.launch_counts[name] == before + n_launch
+    assert_kernel_close(got, ref_fn(A, x))
+    sp64 = sp.astype(np.float64)
+    if kw.get("dtype") is torch.bfloat16:
+        sp64.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          sp64 @ x.double().cpu().numpy())
+    return A
+
+
+# ragged last tile and window (rows not a multiple of 128, cols not of
+# 1024), every lanes_per_row, bf16 values, a spill tail (a second launch)
+RL_CARD = [
+    ((1100, 900), 0.02, dict()),
+    ((1000, 3000), 0.01, dict(lanes_per_row=2, group=4)),
+    ((1100, 900), 0.02, dict(lanes_per_row=4)),
+    ((1000, 3000), 0.01, dict(lanes_per_row=8, dtype=torch.bfloat16)),
+    ((1100, 900), 0.02, dict(lanes_per_row=4, dtype=torch.bfloat16)),
+    ((4000, 5000), 0.002, dict(group=2)),
+]
+
+
+@pytest.mark.parametrize("case", RL_CARD, ids=_dg_id)
+def test_rowlane_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + shape[1])
+    _spmv_case(dev, _sparse(rng, shape, density), pack_sell_rowlane,
+               spmv_sell_rowlane, spmv_sell_rowlane_reference, "spmv_rowlane",
+               **kw)
+
+
+def test_rowlane_spill_tail_kernel(dev):
+    rng = np.random.default_rng(21)
+    d = gen_random_dense_sparse(rng, 600, 1700, density=0.01)
+    d[[3, 200, 599], :] = rng.uniform(-1000, 1000, (3, 1700))
+    import scipy.sparse as sps
+
+    A = _spmv_case(dev, sps.csr_matrix(d), pack_sell_rowlane,
+                   spmv_sell_rowlane, spmv_sell_rowlane_reference,
+                   "spmv_rowlane", n_launch=2, lanes_per_row=2,
+                   spill_depth=1)
+    assert A.spill_packed is not None
+
+
+SB_CARD = [
+    ((1100, 900), 0.02, dict(group=8, k_tiles=8)),
+    ((1000, 3000), 0.01, dict(group=4, k_tiles=4, dtype=torch.bfloat16)),
+    ((4000, 5000), 0.002, dict(group=16, k_tiles=16)),
+    ((300, 1500), 0.05, dict(group=2, k_tiles=32)),
+]
+
+
+@pytest.mark.parametrize("case", SB_CARD, ids=_dg_id)
+def test_superblock_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] * 3 + shape[1])
+    _spmv_case(dev, _sparse(rng, shape, density), pack_superblock,
+               spmv_superblock, spmv_superblock_reference, "spmv_superblock",
+               **kw)
+
+
+# multi-window and odd shapes, depth (deg ~15 a window), the trim section
+# (rem: a second launch), bf16 values
+OCT_CARD = [
+    ((3000, 5000), 0.0005, dict(k_octets=4)),
+    ((1100, 900), 0.001, dict(k_octets=2)),
+    ((1500, 1000), 0.01, dict(k_octets=1)),
+    ((3000, 5000), 0.0005, dict(group=32, k_octets=4, trim_group=8)),
+    ((1100, 900), 0.002, dict(k_octets=2, dtype=torch.bfloat16)),
+]
+
+
+@pytest.mark.parametrize("case", OCT_CARD, ids=_dg_id)
+def test_octet_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + 7 * shape[1])
+    A = _spmv_case(dev, _sparse(rng, shape, density), pack_octet, spmv_octet,
+                   spmv_octet_reference, "spmv_octet",
+                   n_launch=2 if "trim_group" in kw else 1, **kw)
+    assert (A.rem is not None) == ("trim_group" in kw)
+
+
+def test_octet_columns_past_cols(dev):
+    """Padding cells route to a column past ``cols`` in the last window:
+    the kernel reads it as 0."""
+    rng = np.random.default_rng(22)
+    sp = _sparse(rng, (2100, 1030), 0.003)
+    A = pack_octet(CSR.from_scipy(sp, device=dev), k_octets=2)
+    x = torch.from_numpy(rng.standard_normal(1030).astype(np.float32)).to(dev)
+    got = spmv_octet(A, x)
+    assert_kernel_close(got, spmv_octet_reference(A, x))
+    assert relative_check(got.double().cpu().numpy(),
+                          sp.astype(np.float64) @ x.double().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("n_windows", [1, 3, 2048])
+def test_window_permute_kernel(dev, n_windows, dtype):
+    rng = np.random.default_rng(n_windows)
+    from sparsematrix_tpu_torch.ops.permute_clos import _window_planes
+
+    win = np.repeat(np.arange(n_windows), 1024)
+    src = np.concatenate([rng.permutation(1024) for _ in range(n_windows)])
+    dst = np.tile(np.arange(1024), n_windows)
+    planes = [torch.from_numpy(p).to(dev)
+              for p in _window_planes(win, src, dst, n_windows)]
+    x = torch.from_numpy(rng.integers(-2**30, 2**30, (n_windows, 8, 128))
+                         .astype(np.int32)).to(dev)
+    if dtype == torch.float32:
+        x = x.float()
+    before = _build.launch_counts["window_permute"]
+    got = window_permute(x, *planes)
+    assert _build.launch_counts["window_permute"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, window_permute_reference(x, *planes))
+    flat = x.reshape(n_windows, 1024).cpu()
+    want = torch.empty_like(flat)
+    want.reshape(-1)[torch.from_numpy(win * 1024 + dst)] = flat.reshape(-1)[
+        torch.from_numpy(win * 1024 + src)]
+    assert torch.equal(got.reshape(n_windows, 1024).cpu(), want)
+    with pytest.raises(ValueError, match="4-byte"):
+        window_permute(x.double(), *planes)
+
+
+@pytest.mark.parametrize("n,q", [(20_000, 1), (1_200_000, 2), (2_200_000, 3)])
+def test_clos_permutation_on_card(dev, n, q):
+    rng = np.random.default_rng(n)
+    g = np.full(n + 100, n + 5, np.int64)  # sentinel slots read 0
+    live = rng.choice(n + 100, size=n, replace=False)
+    g[live] = rng.permutation(n)
+    plan = plan_clos_permutation(g, n_src=n, device=dev)
+    assert plan.q == q
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    _build.launch_counts.clear()
+    got = apply_permutation(plan, x)
+    assert _build.launch_counts["window_permute"] == (3 if q == 1 else 4)
+    want = torch.zeros(n + 100)
+    want[torch.from_numpy(live)] = x.cpu()[torch.from_numpy(g[live])]
+    assert torch.equal(got.cpu(), want)
+
+
+def test_slice3_gradients_on_card_match_cpu(dev):
+    rng = np.random.default_rng(23)
+    sp = _sparse(rng, (1100, 900), 0.01)
+    x = rng.standard_normal(900).astype(np.float32)
+    packs = [(pack_sell_rowlane, spmv_sell_rowlane, dict(lanes_per_row=2)),
+             (pack_sell_rowlane, spmv_sell_rowlane,
+              dict(with_transpose=True)),
+             (pack_superblock, spmv_superblock, dict(group=4, k_tiles=4)),
+             (pack_octet, spmv_octet, dict(group=8, k_octets=1,
+                                           trim_group=2))]
+    for pack, fn, kw in packs:
+        grads = {}
+        for d in ("cpu", dev):
+            A = pack(CSR.from_scipy(sp, device=d), **kw)
+            v = A.vals.clone().requires_grad_()
+            r = torch.from_numpy(x).to(d).requires_grad_()
+            (fn(dataclasses.replace(A, vals=v), r) ** 2).sum().backward()
+            grads[str(d)] = [v.grad.cpu(), r.grad.cpu()]
+        for got, want in zip(grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+def test_spgemm_and_skew_on_card_match_cpu(dev):
+    """SpGEMM on each pair-program layout and the skew route: the card's
+    result equals the CPU's, with the layout's kernel launched."""
+    from sparsematrix_tpu_torch.utils.testutils import gen_zipf_csr
+
+    rng = np.random.default_rng(24)
+    sa, sb = _sparse(rng, (512, 512), 0.02), _sparse(rng, (512, 512), 0.02)
+    expect = {"auto": "spmv_octet", "superblock": "spmv_superblock",
+              "rowlane": "spmv_rowlane"}
+    for layout, kname in expect.items():
+        out = {}
+        for d in ("cpu", dev):
+            A = CSR.from_scipy(sa, device=d)
+            B = CSR.from_scipy(sb, device=d)
+            pp = spgemm_plan_packed(A, B, layout=layout)
+            _build.launch_counts.clear()
+            c = spgemm_apply_packed(pp, B.data).data
+            ct = spgemm_apply_packed_csc(pp, B.data).data
+            out[str(d)] = (c.cpu(), ct.cpu(), dict(_build.launch_counts))
+        assert out["cpu"][2] == {}
+        assert out["cuda"][2][kname] == 2
+        assert out["cuda"][2]["window_permute"] > 0
+        for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+    C = spgemm(CSR.from_scipy(sa, device=dev), CSR.from_scipy(sb, device=dev),
+               output="csc")
+    want = (sa.astype(np.float64) @ sb.astype(np.float64)).T.tocsr()
+    want.sort_indices()
+    assert relative_check(C.data[: C.nnz].double().cpu().numpy(), want.data)
+    sp = gen_zipf_csr(9, 8192, 8192, 8192 * 32, col_zipf=True)
+    x = rng.standard_normal(8192).astype(np.float32)
+    A = CSR.from_scipy(sp, device=dev)
+    _build.launch_counts.clear()
+    y = spmv(A, torch.from_numpy(x).to(dev))
+    assert _build.launch_counts["spmv_dualgather_sb"] == 1
+    assert relative_check(y.double().cpu().numpy(),
+                          sp.astype(np.float64) @ x)
+    P = pack_skew(CSR.from_scipy(sp, device="cpu"))
+    torch.testing.assert_close(y.cpu(), spmv(P, torch.from_numpy(x)),
+                               rtol=1e-5, atol=1e-5 * float(y.abs().max()))

@@ -85,4 +85,31 @@ def test_cpu_calls_launch_no_kernel():
                           device="cpu")
     smt.spmv(A, torch.ones(2048))
     smt.spmm(A, torch.ones((2048, 3)))
+    # slice 3: SpGEMM through an octet pack and Clos permutations, the
+    # superblock and rowlane layouts
+    B = smt.CSR.fromdense(gen_random_dense_sparse(rng, 512, 512, 0.02),
+                          device="cpu")
+    pp = smt.spgemm_plan_packed(B, B)
+    smt.spgemm_apply_packed(pp, B.data)
+    smt.spgemm_apply_packed_csc(pp, B.data)
+    for layout in ("superblock", "rowlane"):
+        smt.spmv(smt.prepare_spmv(A, layout=layout), torch.ones(2048))
     assert sum(_build.launch_counts.values()) == 0
+
+
+def test_package_data_lists_every_native_source():
+    """Every source that ``kernels/_build.py`` compiles at first use
+    (``csrc/*.cu``, their headers, ``native/*.cc``) ships with the
+    package."""
+    import fnmatch
+    import tomllib
+
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["sparsematrix_tpu_torch"]
+    sources = [p.relative_to(PKG).as_posix()
+               for p in sorted(PKG.glob("csrc/*")) + sorted(PKG.glob("native/*"))]
+    assert any(s.endswith(".cc") for s in sources)
+    assert [s for s in sources
+            if not any(fnmatch.fnmatch(s, g) for g in globs)] == []
+    assert set(_build.SOURCES) == {p.stem for p in PKG.glob("csrc/*.cu")}
+    assert set(_build.HOST_SOURCES) == {p.stem for p in PKG.glob("native/*.cc")}
