@@ -6,7 +6,10 @@ array field with ``np.asarray`` and each static field as it is, and hand
 both here.  A nested container (a ``DualGather``'s ``t_pack``, an
 ``Octet``'s ``rem``, a ``SkewSpmv``'s ``base``) is carried first and
 passed as it is; an optional field may be ``None``; a tuple of arrays (a
-``ClosPermutePlan``'s plane triples) is carried element by element.  bf16 arrays
+``ClosPermutePlan``'s plane triples) is carried element by element.
+Triangular-solve plans carry the same way: a ``TriWavesPlan``'s or
+``TriFusedPlan``'s ``t_plan`` and a ``TriFixPlan``'s ``e_packed`` (a
+``SellRowLane``) first; a string static (``mode``) stays a string.  bf16 arrays
 (numpy's ``bfloat16`` extension type) become ``torch.bfloat16`` tensors
 bit for bit.  Nothing of the JAX package is imported.
 """
@@ -39,13 +42,19 @@ def kinds() -> dict:
     from ..ops.permute import PermutePlan
     from ..ops.permute_clos import ClosPermutePlan
     from ..ops.skew import SkewSpmv
+    from ..kernels.trisolve_fused import TriFusedPlan
+    from ..kernels.trisolve_waves import TriWavesPlan
+    from ..ops.direct import SpluSolver
     from ..ops.spgemm import SpGEMMPacked, SpGEMMPlan
+    from ..ops.trisolve import TriFixPlan, TriLevelPlan, TriSolvePlan
 
     return {cls.__name__: cls
             for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL,
                         StripDense, DualGather, PooledDG, Octet, SellRowLane,
                         SellSuperblock, PermutePlan, ClosPermutePlan,
-                        SkewSpmv, SpGEMMPlan, SpGEMMPacked)}
+                        SkewSpmv, SpGEMMPlan, SpGEMMPacked, TriSolvePlan,
+                        TriFixPlan, TriLevelPlan, TriFusedPlan, TriWavesPlan,
+                        SpluSolver)}
 
 
 def _tensor(arr, dev):
@@ -61,6 +70,8 @@ def _tensor(arr, dev):
 
 
 def _static(val):
+    if isinstance(val, str):
+        return val
     if isinstance(val, (bool, np.bool_)):
         return bool(val)
     if isinstance(val, (tuple, list)):

@@ -13,6 +13,12 @@ from .spmv_rowlane import (SellRowLane, pack_sell_rowlane, spmv_sell_rowlane,
                            spmv_sell_rowlane_reference)
 from .spmv_superblock import (SellSuperblock, pack_superblock,
                               spmv_superblock, spmv_superblock_reference)
+from .trisolve_fused import (TriFusedPlan, trisolve_fused_apply,
+                             trisolve_fused_apply_batched,
+                             trisolve_fused_plan)
+from .trisolve_waves import (TriWavesPlan, trisolve_waves_apply,
+                             trisolve_waves_apply_mm, trisolve_waves_plan,
+                             trisolve_waves_solve)
 from .window_permute import window_permute, window_permute_reference
 
 __all__ = [
@@ -39,6 +45,15 @@ __all__ = [
     "spmv_superblock_reference",
     "window_permute",
     "window_permute_reference",
+    "TriFusedPlan",
+    "trisolve_fused_plan",
+    "trisolve_fused_apply",
+    "trisolve_fused_apply_batched",
+    "TriWavesPlan",
+    "trisolve_waves_plan",
+    "trisolve_waves_apply",
+    "trisolve_waves_apply_mm",
+    "trisolve_waves_solve",
     "codebook_matmul",
     "codebook_spmm",
     "codebook_spmm_reference",

@@ -1,6 +1,7 @@
 """Builds the native sources at first use and loads them.
 
-Each ``csrc/<name>.cu`` exports one C function ``<name>`` and is compiled by
+Each ``csrc/<name>.cu`` exports a C function ``<name>`` (or several, one
+per kernel it holds) and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/kernels/``
 at the repository root, named by a hash of the flags, the source and the
 headers it includes, so an edit rebuilds what it touches and an unchanged
@@ -10,7 +11,7 @@ to seconds.  Without ``nvcc`` the build raises.
 
 The host-side C++ helpers (``native/<name>.cc``: the packers' slot
 assigners, the rowlane packer, the colorers of the permutation planner
-and of SpGEMM) are built the same way by ``g++ -O3 -shared -fPIC
+and of SpGEMM, the ILU(0)/IC(0) factorizations) are built the same way by ``g++ -O3 -shared -fPIC
 -pthread`` into ``build/host/`` (``build_host`` starts them all at once);
 ``load_host`` returns None where no ``g++`` is found, and the caller then
 takes its numpy path.  Importing this module builds nothing.
@@ -43,13 +44,15 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 HOST_BUILD_DIR = _PKG.parent / "build" / "host"
 SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmm_dualgather", "window_permute", "spmv_octet", "spmv_rowlane",
-           "spmv_superblock")
+           "spmv_superblock", "trisolve_waves", "trisolve_fused")
 # the launch counters: one per kernel (a source may hold several)
 KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb",
-           "window_permute", "spmv_octet", "spmv_rowlane", "spmv_superblock")
+           "window_permute", "spmv_octet", "spmv_rowlane", "spmv_superblock",
+           "trisolve_fused", "trisolve_chain", "trisolve_binv",
+           "trisolve_chain_mm")
 # the host sources (native/<name>.cc)
-HOST_SOURCES = ("assign", "rowlane", "octet", "color")
+HOST_SOURCES = ("assign", "rowlane", "octet", "color", "factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -131,17 +134,20 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     return out
 
 
-def load(name: str, argtypes: Sequence[type]) -> Callable[..., int]:
-    """The C function ``name`` of ``csrc/<name>.cu``, built at first use,
-    with ``argtypes`` set and an ``int`` (cudaError_t) result."""
+def load(name: str, argtypes: Sequence[type],
+         symbol: Optional[str] = None) -> Callable[..., int]:
+    """The C function ``symbol`` (default ``name``) of ``csrc/<name>.cu``,
+    built at first use, with ``argtypes`` set and an ``int`` (cudaError_t)
+    result."""
+    symbol = symbol or name
     with _lock:
-        fn = _funcs.get(name)
+        fn = _funcs.get(symbol)
         if fn is None:
             lib = ctypes.CDLL(build([name])[name]["path"])
-            fn = getattr(lib, name)
+            fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _funcs[name] = fn
+            _funcs[symbol] = fn
         return fn
 
 

@@ -14,6 +14,10 @@ port imports nothing of the JAX package).  Mirrors the reference harness:
   * ``quantized_check`` — the scale-floored policy for bf16/quantized paths.
   * ``gen_zipf_csr`` — power-law rows (and columns), a copy of the JAX
     bench's generator (``sparsematrix_tpu/bench/suite.py:716-741``).
+  * ``poisson2d`` — the 5-point 2-D Poisson operator of the JAX bench's
+    solver rows (``suite.py:1444-1461``).
+  * ``triangular`` / ``tri_oracle`` — a diagonally dominant random
+    triangular factor and its float64 ``spsolve_triangular`` solve.
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ __all__ = [
     "gen_sparse_index_matrix",
     "gen_random_dense_sparse",
     "gen_zipf_csr",
+    "poisson2d",
+    "triangular",
+    "tri_oracle",
     "relative_check",
     "quantized_check",
     "REF_TOL",
@@ -122,3 +129,69 @@ def gen_zipf_csr(seed, n, m, total_nnz, alpha=0.8, col_zipf=False):
     sp = sps.coo_matrix((data_, (rows_, cols_)), shape=(n, m)).tocsr()
     sp.sum_duplicates()
     return sp
+
+
+def poisson2d(n, eps=1.0):
+    """5-point Laplacian on a √n×√n grid, −u_xx − eps·u_yy (anisotropic
+    for eps != 1); returns (n_actual, scipy CSR, fp64).  The JAX bench's
+    ``_poisson2d`` with the diagonals' type given (the same matrix, without
+    scipy's warning about integer diagonals)."""
+    import scipy.sparse as sps
+
+    side = int(np.sqrt(n))
+    n = side * side
+    Iq = sps.eye(side)
+    if eps == 1.0:
+        T = sps.diags([-1, 4, -1], [-1, 0, 1], (side, side),
+                      dtype=np.float64)
+        Apo = (sps.kron(Iq, T) + sps.kron(sps.diags([-1, -1], [-1, 1],
+                                                    (side, side),
+                                                    dtype=np.float64),
+                                          Iq)).tocsr()
+    else:
+        Tx = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (side, side),
+                       dtype=np.float64)
+        Apo = (sps.kron(Iq, Tx) + eps * sps.kron(Tx, Iq)).tocsr()
+    return n, Apo
+
+
+def triangular(n, per_row, band=None, unit=False, lower=True, seed=0):
+    """A diagonally dominant triangular scipy CSR (fp32): ``per_row``
+    off-diagonal draws a row (duplicates merged), within ``band`` of the
+    diagonal (None: anywhere below it), values in ±1; the diagonal is 1 +
+    the row's absolute sum, or 1 with the row scaled to an absolute sum
+    ≤ 0.5 when ``unit``; the transpose when not ``lower``.  Dominance
+    bounds how far a solve amplifies summation-order differences."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(1, n), per_row)
+    if band is None:
+        c = (rng.random(r.size) * r).astype(np.int64)
+    else:
+        c = r - rng.integers(1, band + 1, r.size)
+    keep = c >= 0
+    r, c = r[keep], c[keep]
+    E = sps.coo_matrix((rng.uniform(-1, 1, r.size), (r, c)),
+                       shape=(n, n)).tocsr()
+    E.sum_duplicates()
+    rowsum = np.asarray(abs(E).sum(axis=1)).ravel()
+    if unit:
+        E = sps.diags(0.5 / np.maximum(rowsum, 0.5)) @ E
+        d = np.ones(n)
+    else:
+        d = 1.0 + rowsum
+    T = (E + sps.diags(d)).tocsr().astype(np.float32)
+    return T if lower else T.T.tocsr()
+
+
+def tri_oracle(sp, b, lower=True, unit=False):
+    """float64 ``spsolve_triangular`` of ``sp`` (its diagonal taken as 1
+    where ``unit``); a 2-D ``b`` solves column by column."""
+    import scipy.sparse.linalg as spla
+
+    sp64 = sp.astype(np.float64).tolil()
+    if unit:
+        sp64.setdiag(1.0)
+    return spla.spsolve_triangular(sp64.tocsr(),
+                                   np.asarray(b, np.float64), lower=lower)

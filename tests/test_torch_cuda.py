@@ -38,7 +38,8 @@ from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
                                                     gen_random_dense_sparse,
                                                     gen_sparse_index_matrix,
                                                     quantized_check,
-                                                    relative_check)
+                                                    relative_check,
+                                                    tri_oracle, triangular)
 
 pytestmark = pytest.mark.cuda
 
@@ -543,3 +544,201 @@ def test_spgemm_and_skew_on_card_match_cpu(dev):
     P = pack_skew(CSR.from_scipy(sp, device="cpu"))
     torch.testing.assert_close(y.cpu(), spmv(P, torch.from_numpy(x)),
                                rtol=1e-5, atol=1e-5 * float(y.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# slice 4: triangular solves (rows 18-21 of PERF.md's table) and the
+# solvers on top of them
+# ---------------------------------------------------------------------------
+
+def assert_solve_close(got, want):
+    """A solve on the card against its plain version: the fp32 sums run
+    in another order, and the (diagonally dominant) recurrence carries
+    each difference on, so 1e-4 of the output scale."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got.double() - want.double()).abs().max()) <= 1e-4 * scale
+
+
+# (n, per_row, band, unit, lower, plan arguments, expected mode, K)
+WAVES_CARD = [
+    (1000, 4, 100, False, True, dict(), "chain", 1),
+    (1300, 4, 200, False, True, dict(), "chain", 2),
+    (3000, 3, 380, True, True, dict(), "chain", 3),
+    (1300, 4, 200, False, False, dict(dtype=torch.bfloat16), "chain", 2),
+    (2100, 4, 250, False, False, dict(), "chain", 2),
+    (900, 4, None, False, True, dict(m=2), "binv", None),
+    (2500, 4, None, True, True, dict(m=8), "binv", None),
+    (2500, 4, None, False, False, dict(m=8, dtype=torch.bfloat16), "binv",
+     None),
+    (1700, 3, None, True, False, dict(m=4), "binv", None),
+]
+
+
+def _waves_id(case):
+    n, per_row, band, unit, lower, kw, mode, K = case
+    return (f"{mode}-n{n}-{'L' if lower else 'U'}{'-unit' if unit else ''}"
+            f"-{'-'.join(f'{k}={v}' for k, v in kw.items())}")
+
+
+@pytest.mark.parametrize("case", WAVES_CARD, ids=_waves_id)
+def test_trisolve_waves_kernel(dev, case):
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    n, per_row, band, unit, lower, kw, mode, K = case
+    sp = triangular(n, per_row, band, unit, lower, seed=n)
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(sp, device=dev),
+                                  lower=lower, unit_diagonal=unit, **kw)
+    assert plan.mode == mode and (K is None or plan.K == K)
+    b = np.random.default_rng(n + 1).standard_normal(n).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    name = "trisolve_chain" if mode == "chain" else "trisolve_binv"
+    before = _build.launch_counts[name]
+    got = tw.trisolve_waves_apply(plan, bd)
+    assert _build.launch_counts[name] == before + 1
+    assert_solve_close(got, tw.waves_forward_plain(plan, bd))
+    if "dtype" not in kw:
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   tri_oracle(sp, b, lower, unit),
+                                   rtol=2e-3, atol=1e-3)
+    # the multi-RHS path: one chain_mm launch per 8 columns (a ragged
+    # second pane at k = 12), or one binv launch per column
+    for k in (1, 8, 12):
+        B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (n, k)).astype(np.float32)).to(dev)
+        mm_name = "trisolve_chain_mm" if mode == "chain" else name
+        before = _build.launch_counts[mm_name]
+        got = tw.trisolve_waves_apply_mm(plan, B)
+        assert _build.launch_counts[mm_name] == before + (
+            -(-k // 8) if mode == "chain" else k)
+        assert_solve_close(got, tw.mm_forward_plain(plan, B))
+
+
+def test_trisolve_chain_256_waves(dev):
+    """n = 262144: 2048 tiles, 256 waves, far more steps than the card
+    holds blocks at once."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    n = 262144
+    sp = triangular(n, 2, 120, False, True, seed=5)
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(sp, device=dev))
+    assert plan.mode == "chain" and plan.n_waves == 256
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(n).astype(
+        np.float32)).to(dev)
+    got = tw.trisolve_waves_apply(plan, b)
+    assert_solve_close(got, tw.waves_forward_plain(plan, b))
+    B = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (n, 8)).astype(np.float32)).to(dev)
+    assert_solve_close(tw.trisolve_waves_apply_mm(plan, B),
+                       tw.mm_forward_plain(plan, B))
+
+
+# (n, per_row, band, unit, lower, plan arguments)
+FUSED_CARD = [
+    (1000, 4, None, False, True, dict()),
+    (1300, 4, 200, True, False, dict()),
+    (3000, 3, None, False, False, dict(group=2)),
+    (1100, 4, 300, False, True, dict(dtype=torch.bfloat16)),
+    (1500, 4, None, False, True, dict(level_sort=False)),
+]
+
+
+@pytest.mark.parametrize("case", FUSED_CARD, ids=lambda c: f"n{c[0]}-"
+                         f"{'L' if c[4] else 'U'}-{c[5]}")
+def test_trisolve_fused_kernel(dev, case):
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    n, per_row, band, unit, lower, kw = case
+    sp = triangular(n, per_row, band, unit, lower, seed=n + 3)
+    plan = tf.trisolve_fused_plan(CSR.from_scipy(sp, device=dev),
+                                  lower=lower, unit_diagonal=unit, **kw)
+    b = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    before = _build.launch_counts["trisolve_fused"]
+    got = tf.trisolve_fused_apply(plan, bd)
+    assert _build.launch_counts["trisolve_fused"] == before + 1
+    assert_solve_close(got, tf.fused_forward_plain(plan, bd))
+    if "dtype" not in kw:
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   tri_oracle(sp, b, lower, unit),
+                                   rtol=2e-3, atol=1e-3)
+
+
+def test_trisolve_gradients_on_card_match_cpu(dev):
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    rng = np.random.default_rng(31)
+    cases = [(triangular(1300, 4, 200, seed=1), True, False),
+             (triangular(900, 4, None, True, False, seed=2), False, True)]
+    for sp, lower, unit in cases:
+        n = sp.shape[0]
+        b = rng.standard_normal(n).astype(np.float32)
+        w = rng.standard_normal(n).astype(np.float32)
+        grads = {}
+        for d in ("cpu", dev):
+            A = CSR.from_scipy(sp, device=d)
+            wp = tw.trisolve_waves_plan(A, lower=lower, unit_diagonal=unit,
+                                        with_grads=True)
+            fp = tf.trisolve_fused_plan(A, lower=lower, unit_diagonal=unit,
+                                        with_transpose=True)
+            out = []
+            bt = torch.from_numpy(b).to(d).requires_grad_()
+            (tw.trisolve_waves_apply(wp, bt)
+             * torch.from_numpy(w).to(d)).sum().backward()
+            out.append(bt.grad.cpu())
+            bt = torch.from_numpy(b).to(d).requires_grad_()
+            v = A.data.clone().requires_grad_()
+            (tw.trisolve_waves_solve(wp, v, bt)
+             * torch.from_numpy(w).to(d)).sum().backward()
+            out += [bt.grad.cpu(), v.grad.cpu()]
+            bt = torch.from_numpy(b).to(d).requires_grad_()
+            fv = fp.vals.clone().requires_grad_()
+            (tf.trisolve_fused_apply(dataclasses.replace(fp, vals=fv), bt)
+             * torch.from_numpy(w).to(d)).sum().backward()
+            out += [bt.grad.cpu(), fv.grad.cpu()]
+            grads[str(d)] = out
+        for got, want in zip(grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * float(want.abs().max()))
+
+
+def test_solvers_on_card_match_cpu(dev):
+    """cg with IC(0) wave and fused plans and block_cg with IC(0) wave
+    plans on the 64×64 Poisson system: the card's iterations and solution
+    agree with the CPU's, through the slice's kernels."""
+    from sparsematrix_tpu_torch import (block_cg, cg, ic0_fused_plans,
+                                        ic0_waves_plans, ic_apply,
+                                        prepare_spmv)
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    n, Apo = poisson2d(4096)
+    sp = Apo.astype(np.float32)
+    rng = np.random.default_rng(8)
+    b = rng.standard_normal(n).astype(np.float32)
+    B = rng.standard_normal((n, 8)).astype(np.float32)
+    res = {}
+    for d in ("cpu", dev):
+        A = CSR.from_scipy(sp, device=d)
+        P = prepare_spmv(A)
+        _build.launch_counts.clear()
+        out = []
+        for build in (ic0_waves_plans, ic0_fused_plans):
+            plans = build(A)
+            r = cg(P, torch.from_numpy(b).to(d), tol=1e-5, maxiter=500,
+                   M=lambda v, plans=plans: ic_apply(plans, v))
+            out.append((r.iters, r.x.cpu()))
+        plans = ic0_waves_plans(A)
+        r = block_cg(lambda V, A=A: spmm(A, V), torch.from_numpy(B).to(d),
+                     tol=1e-5, maxiter=500,
+                     M=lambda R: ic_apply(plans, R))
+        out.append((r.iters, r.x.cpu()))
+        res[str(d)] = (out, dict(_build.launch_counts))
+    assert res["cpu"][1] == {}
+    for kn in ("trisolve_chain", "trisolve_fused", "trisolve_chain_mm"):
+        assert res["cuda"][1][kn] > 0
+    for (it_g, x_g), (it_c, x_c) in zip(res["cuda"][0], res["cpu"][0]):
+        assert abs(it_g - it_c) <= 2
+        torch.testing.assert_close(x_g, x_c, rtol=1e-3,
+                                   atol=1e-3 * float(x_c.abs().max()))

@@ -17,7 +17,7 @@ import sparsematrix_tpu_torch.formats as tf
 from sparsematrix_tpu.ops import spmm_reference as jax_spmm_reference
 from sparsematrix_tpu_torch.ops import spmm
 from sparsematrix_tpu_torch.utils.testutils import (
-    gen_random_dense_sparse, gen_sparse_index_matrix)
+    gen_random_dense_sparse, gen_sparse_index_matrix, triangular)
 
 CPU = "cpu"
 
@@ -247,3 +247,54 @@ def test_carry_rejects_mismatched_fields():
     with pytest.raises(ValueError, match="static fields"):
         tf.from_numpy_fields("CSR", arrays, {"shape": statics["shape"]},
                              device=CPU)
+
+
+def _tri_plan_cases():
+    """(JAX plan builder, port apply, JAX apply, plan arguments) of every
+    triangular-solve plan type."""
+    import importlib
+
+    jts = importlib.import_module("sparsematrix_tpu.ops.trisolve")
+    tts = importlib.import_module("sparsematrix_tpu_torch.ops.trisolve")
+    jw = importlib.import_module("sparsematrix_tpu.kernels.trisolve_waves")
+    tw = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.trisolve_waves")
+    jfu = importlib.import_module("sparsematrix_tpu.kernels.trisolve_fused")
+    tfu = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.trisolve_fused")
+    return {
+        "TriSolvePlan": (jts.trisolve_plan, tts.trisolve_apply,
+                         jts.trisolve_apply, {}),
+        "TriFixPlan": (jts.trisolve_fixpoint_plan,
+                       tts.trisolve_fixpoint_apply,
+                       jts.trisolve_fixpoint_apply, dict(group=4)),
+        "TriLevelPlan": (jts.trisolve_level_plan, tts.trisolve_level_apply,
+                         jts.trisolve_level_apply, {}),
+        "TriFusedPlan": (jfu.trisolve_fused_plan, tfu.trisolve_fused_apply,
+                         jfu.trisolve_fused_apply,
+                         dict(with_transpose=True)),
+        "TriWavesPlan": (jw.trisolve_waves_plan, tw.trisolve_waves_apply,
+                         jw.trisolve_waves_apply,
+                         dict(mode="binv", m=2, with_grads=True)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["TriSolvePlan", "TriFixPlan",
+                                  "TriLevelPlan", "TriFusedPlan",
+                                  "TriWavesPlan"])
+def test_carry_triangular_plans(kind):
+    """A JAX plan carried field by field (nested ``t_plan`` and
+    ``e_packed``, ``None`` optionals, the ``mode`` string) gives the JAX
+    result (rtol 2e-3, atol 1e-3, the JAX trisolve tests')."""
+    from test_torch_trisolve import carry
+    from test_torch_spmv import assert_same_container
+
+    build, apply_, japply, kw = _tri_plan_cases()[kind]
+    sp = triangular(300, 4, lower=False)
+    jplan = build(jf.CSR.from_scipy(sp), lower=False, **kw)
+    plan = carry(jplan)
+    assert_same_container(plan, jplan)
+    b = np.random.default_rng(1).standard_normal(300).astype(np.float32)
+    np.testing.assert_allclose(
+        apply_(plan, torch.from_numpy(b)).numpy(),
+        np.asarray(japply(jplan, jnp.asarray(b))), rtol=2e-3, atol=1e-3)

@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import torch
+from threadpoolctl import threadpool_limits
 
 import sparsematrix_tpu_torch as smt
 from sparsematrix_tpu_torch.kernels import _build
@@ -94,6 +95,23 @@ def test_cpu_calls_launch_no_kernel():
     smt.spgemm_apply_packed_csc(pp, B.data)
     for layout in ("superblock", "rowlane"):
         smt.spmv(smt.prepare_spmv(A, layout=layout), torch.ones(2048))
+    # slice 4: every triangular-solve engine under the solvers (one BLAS
+    # thread: the wave planner's many small inversions crawl when every
+    # worker of a parallel run keeps a thread a core)
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    P = smt.CSR.from_scipy(poisson2d(256)[1].astype(np.float32),
+                           device="cpu")
+    with threadpool_limits(limits=1, user_api="blas"):
+        for plans in (smt.ic0_waves_plans(P), smt.ic0_fused_plans(P),
+                      smt.ilu0_fixpoint_plans(P, n_iters=2),
+                      smt.ilu0_level_plans(P)):
+            smt.cg(P, torch.ones(256), tol=1e-4, maxiter=5,
+                   M=lambda r, plans=plans: smt.ic_apply(plans, r))
+        smt.block_cg(lambda V: smt.spmm(P, V), torch.ones((256, 8)),
+                     maxiter=2,
+                     M=lambda R: smt.ic_apply(smt.ic0_waves_plans(P), R))
+        smt.trisolve(smt.ilu0(P)[1], torch.ones(256), lower=False)
     assert sum(_build.launch_counts.values()) == 0
 
 
