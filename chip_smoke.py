@@ -39,7 +39,15 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    factor at n = 65536 and its upper twin, a bf16 plan) and the fused
    plans; the chain, binv, 8-RHS chain (k = 8 and 12) and fused kernels
    against their plain versions (1e-4 of the output scale) and a float64
-   ``spsolve_triangular`` oracle.
+   ``spsolve_triangular`` oracle.  Then slice 5: the SELL kernels on the
+   JAX bench's ``csr_spmv`` sell row (n = 4096, 128 a row, tr = 64) and
+   rowpure rows (64 a row at R = 16, 128 a row at R = 8) and on the XL CSR
+   (``pack_sell(tr=64)``, ``pack_sell_rowpure(group=4, R=16)``); the
+   pooled-tail kernel on the XL CSR's ``spill_cap="auto"`` packs (k_tiles
+   1 and 8) at k = 1 and 32, and those packs whole against the XL oracle;
+   the octet SpMM at k = 32 on the bench's ``spmm_xl/octet-mm`` matrix
+   (n = 32768, 2 a row), the clustered CSR's octet pack and the
+   ``spgemm_xl`` pair program's trim pack (``rem``).
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
    4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
@@ -56,9 +64,17 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    ic0-waves-bf16), ``block_cg`` with k = 8 (plain and ic0-waves) and the
    one-shot ``trisolve`` on the scattered factor, each held to the
    bench's checks (tol reached, true residual within 10·tol·‖b‖,
-   preconditioned CG in at most 0.6× plain's iterations).  Every launch
-   counter is set to 0 just before each path and
-   read just after, and each kernel must have launched.
+   preconditioned CG in at most 0.6× plain's iterations); then slice 5:
+   ``spmm(prepare_spmv(A), X)`` on the octet-mm and clustered CSRs (the
+   octet auto route), ``spmv``/``spmm`` on the XL spill-cap packs,
+   ``spmv`` on the four SELL packs, ``spmm(csr, X)`` on a power-law CSR
+   (n = 131072) whose skew base is an octet, ``splu_solve`` (waves at
+   n = 65536, fused at n = 16384, a vector and a panel each, against the
+   engines' plain solves and fp64 SuperLU) and ``bicgstab`` (plain and
+   ILU(0) waves) on the convection system at n = 65536.  Every launch
+   counter is set to 0 just before each path and read just after, and
+   each kernel must have launched.  ``seconds`` lines give each phase's
+   time.
 5. timings — device time of one call, from CUDA events around each of 30
    calls, each queued behind its own spin kernel (so the host's cost of
    issuing a call does not show) with the 50 MB L2 flushed before it,
@@ -74,7 +90,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    ``torch.triangular_solve`` with a CSR matrix (its analysis runs in
    every call), and the count of dependent steps is printed; for each
    solver cell the time of an iteration (a tol=0 run of 25 iterations,
-   device and wall), iterations and ms to tol.
+   device and wall), iterations and ms to tol.  For the slice-5 kernels
+   the yardstick is cuSPARSE SpMV/SpMM of the same CSR (for the pooled
+   tail, of the tail's own entries) and, for the octet SpMM, also the
+   port's k_tiles=1 dual-gather walk on the same matrix
+   (``kt1_walk_ms``).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -169,6 +189,17 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def sparse_work(sp, k: int, val_bytes: int):
+    """(operations, bytes) of ``sp @ X`` with X of ``k`` columns (k = 1: a
+    vector): each stored value and its 4-byte column once, the rows of X
+    that a stored column names read once (a row no entry names is never
+    read), Y written once in full."""
+    rows, _ = sp.shape
+    used = np.unique(sp.indices).size
+    return (2.0 * sp.nnz * k,
+            sp.nnz * (val_bytes + 4.0) + 4.0 * used * k + 4.0 * rows * k)
+
+
 def xl_matrix(n: int = 32768, nnz_row: int = 512):
     """The JAX bench's 10⁷-nnz point (``bench/suite.py:601-620``): 512
     column draws a row from ``default_rng(9)``, values uniform in ±1000,
@@ -238,6 +269,59 @@ def clustered_matrix(n: int = 512 * 128, nnz: int = 80_000):
     sp = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     sp.sum_duplicates()
     return sp, g.standard_normal(n).astype(np.float32)
+
+
+def octet_mm_matrix(n: int = 32768, k: int = 32):
+    """The JAX bench's ``spmm_xl/octet-mm`` point
+    (``bench/suite.py:1655-1667``): 2 column draws a row from
+    ``default_rng(12)``, values uniform in ±1, duplicates merged; X
+    (n, k) uniform in ±1 from the same generator.  Returns (scipy CSR,
+    X)."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(12)
+    rows = np.repeat(np.arange(n), 2)
+    cols = g.integers(0, n, rows.size)
+    data = g.uniform(-1, 1, rows.size).astype(np.float32)
+    sp = sps.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()
+    sp.sum_duplicates()
+    return sp, g.uniform(-1, 1, (n, k)).astype(np.float32)
+
+
+def octet_skew_matrix(n: int = 131072, hubs: int = 16):
+    """A power-law CSR whose skew base packs to an octet: 1-2 scattered
+    column draws a row plus ``hubs`` hub columns that each hold a quarter
+    of the rows (a citation-style pattern: most rows cite one or two
+    papers, every row may cite a few classics), values uniform in ±1000,
+    from ``default_rng(17)``.  Once the hub columns leave, the remainder
+    holds ≲ 2 entries a row.  Returns a scipy CSR."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(17)
+    r = np.repeat(np.arange(n), g.integers(1, 3, n))
+    c = g.integers(0, n, r.size)
+    hub = g.choice(n, hubs, replace=False)
+    hr = np.concatenate([g.choice(n, n // 4, replace=False) for _ in hub])
+    rows = np.concatenate([r, hr])
+    cols = np.concatenate([c, np.repeat(hub, n // 4)])
+    data = g.uniform(-1000, 1000, rows.size).astype(np.float32)
+    sp = sps.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()
+    sp.sum_duplicates()
+    return sp
+
+
+def convection_system(side: int):
+    """The unsymmetric system of the port's solver tests: the side×side
+    2-D Poisson matrix plus 0.5 × a central convection term along x.
+    Returns (n, scipy CSR fp32)."""
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    n, sp = poisson2d(side * side)
+    sp = sp + 0.5 * sps.kron(sps.eye(side), sps.diags(
+        [-1.0, 1.0], [-1, 1], (side, side)))
+    return n, sp.tocsr().astype(np.float32)
 
 
 def container_bytes(obj) -> int:
@@ -381,6 +465,15 @@ def main() -> int:
     dev = torch.device("cuda")
     failures = []
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def mark(section):
+        """Prints the seconds since the last mark (the script's phases
+        share one time limit)."""
+        now = time.perf_counter()
+        emit({"phase": "seconds", "section": section,
+              "seconds": now - t_mark[0]})
+        t_mark[0] = now
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -416,6 +509,7 @@ def main() -> int:
               "ptxas": [ln.strip() for ln in str(info["log"]).splitlines()
                         if "Used" in ln or "spill" in ln]}
               for name, info in built.items()}})
+    mark("build")
     if "libs" not in host:
         print("chip_smoke: FAILED: the host libraries did not build: "
               f"{host.get('error')}", file=sys.stderr)
@@ -912,6 +1006,152 @@ def main() -> int:
     tri_cases[bv] = [c for c in tri_cases[bv] if "512^2" not in c[0]]
     tri_cases[ch] = [c for c in tri_cases[ch] if "band" not in c[0]]
 
+    # slice 5: octet SpMM (row 16), the pooled spill tail (row 12) and the
+    # SELL kernels (rows 5 and 6) at the JAX bench's shapes, each pack
+    # with its host seconds; each kernel against its plain version and a
+    # float64 oracle
+    selmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmv_sell")
+    mark("check, slices 1-4")
+    s5_cases = {}  # kernel -> [(case, run, run plain, scipy matrix,
+    #                            right-hand side, extras); fp32 values
+
+    def s5_pack(label, build):
+        t = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        tail = getattr(out, "tail", None)
+        emit({"phase": "pack", "pack": label,
+              "seconds": time.perf_counter() - t, "kind": type(out).__name__,
+              "fill": out.fill_rate, "bytes": container_bytes(out),
+              "tail_nnz": tail.nnz if tail is not None else None,
+              "rem": getattr(out, "rem", None) is not None})
+        return out
+
+    def s5_check(kname, case, kern, plain, sp, rhs, **extra):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        oracle = sp.astype(np.float64) @ rhs.double().cpu().numpy()
+        errs[(kname, case)] = check(kname, case, got, want, oracle, False)
+        s5_cases.setdefault(kname, []).append(
+            (case, kern, plain, sp, rhs, extra))
+        del got, want
+
+    # rows 5 and 6: the bench's csr_spmv sell and rowpure rows at n = 4096
+    # (suite.py:184-222) and the XL CSR
+    sell_in = {}
+    for tag, per_row, seed in (("128/row", 128, 13), ("64/row", 64, 14)):
+        sp_s, x_s = random_matrix(4096, per_row, seed=seed)
+        sell_in[tag] = (sp_s, CSR.from_scipy(sp_s, device=dev),
+                        torch.from_numpy(x_s).to(dev))
+    S_packs = {
+        "sell n=4096 128/row tr=64": (
+            "spmv_sell", sell_in["128/row"],
+            lambda: selmod.pack_sell(sell_in["128/row"][1], tr=64)),
+        "rowpure n=4096 64/row R=16": (
+            "spmv_sell_rowpure", sell_in["64/row"],
+            lambda: selmod.pack_sell_rowpure(sell_in["64/row"][1], group=4,
+                                             rows_per_sublane=16)),
+        "rowpure n=4096 128/row R=8": (
+            "spmv_sell_rowpure", sell_in["128/row"],
+            lambda: selmod.pack_sell_rowpure(sell_in["128/row"][1], group=4,
+                                             rows_per_sublane=8)),
+        "sell XL tr=64": ("spmv_sell", (sp_xl, A_xl, x_xl),
+                          lambda: selmod.pack_sell(A_xl, tr=64)),
+        "rowpure XL group=4 R=16": (
+            "spmv_sell_rowpure", (sp_xl, A_xl, x_xl),
+            lambda: selmod.pack_sell_rowpure(A_xl, group=4,
+                                             rows_per_sublane=16)),
+    }
+    sell_main = []  # (case, pack, x, scipy, kernel)
+    for case, (kname, (sp_s, A_s, x_s), build) in S_packs.items():
+        P = s5_pack(case, build)
+        kern = (selmod._spmv_sell_cuda if kname == "spmv_sell"
+                else selmod._spmv_sell_rowpure_cuda)
+        plain = (selmod.spmv_sell_reference if kname == "spmv_sell"
+                 else selmod.spmv_sell_rowpure_reference)
+        s5_check(kname, case, lambda P=P, x=x_s, f=kern: f(P, x),
+                 lambda P=P, x=x_s, f=plain: f(P, x), sp_s, x_s)
+        sell_main.append((case, P, x_s, sp_s, kname))
+
+    # row 12: the XL CSR with the "auto" spill cap (mean row-window
+    # degree ~16: cap 16) at k_tiles 1 and 8; the tail kernel alone at
+    # k = 1 and 32 against the tail's own entries, and the whole packs
+    # (body kernel, then the tail) against the XL oracle
+    P_sp1 = s5_pack("XL prepare_spmv(dualgather, spill_cap=auto) k_tiles=1",
+                    lambda: prepare_spmv(A_xl, layout="dualgather",
+                                         spill_cap="auto"))
+    P_sp8 = s5_pack("XL prepare_spmv(dualgather, spill_cap=auto) k_tiles=8",
+                    lambda: prepare_spmv(A_xl, layout="dualgather",
+                                         spill_cap="auto", k_tiles=8))
+    if P_sp1.tail is None or P_sp8.tail is None:
+        failures.append("the XL spill_cap=auto packs formed no tail")
+    tail8 = P_sp8.tail
+    sp_tail = pack_to_scipy(tail8, dgmod._slot_row_col_pooled)
+
+    def run_tail(X, tail=tail8):
+        Y = torch.zeros((tail.shape[0], X.shape[1]), dtype=torch.float32,
+                        device=X.device)
+        dgmod.launch_pooled(tail, X, Y)
+        return Y
+
+    for k_rhs, rhs in ((1, x_xl[:, None]), (32, X_xl)):
+        s5_check("spmv_pooled",
+                 f"XL tail (spill_cap=auto) k_tiles=8 k={k_rhs}",
+                 lambda rhs=rhs: run_tail(rhs),
+                 lambda rhs=rhs: dgmod.pooled_plain(tail8, rhs), sp_tail, rhs)
+    for case, got_fn, plain_fn, want in [
+            ("XL spill k_tiles=1 spmv (body + tail)",
+             lambda: dgmod._spmv_dualgather_cuda(P_sp1, x_xl),
+             lambda: dgmod.spmv_dualgather_reference(P_sp1, x_xl),
+             y_xl_want),
+            ("XL spill k_tiles=8 spmv (body + tail)",
+             lambda: dgmod._spmv_dualgather_cuda(P_sp8, x_xl),
+             lambda: dgmod.spmv_dualgather_reference(P_sp8, x_xl),
+             y_xl_want),
+            ("XL spill k_tiles=8 spmm k=32 (body + tail)",
+             lambda: _spmm_dualgather_cuda(P_sp8, X_xl),
+             lambda: spmm_dualgather_reference(P_sp8, X_xl), Y_xl_want)]:
+        got, want_plain = got_fn(), plain_fn()
+        torch.cuda.synchronize()
+        errs[("spmv_pooled", case)] = check("spmv_pooled", case, got,
+                                            want_plain, want, False)
+        del got, want_plain
+
+    # row 16: the bench's spmm_xl/octet-mm matrix, the clustered CSR's
+    # octet pack and the spgemm_xl pair program's trim pack (rem), k = 32;
+    # the k_tiles=1 dual-gather walk on the same matrix beside it
+    t = time.perf_counter()
+    sp_omm, X_omm_np = octet_mm_matrix()
+    A_omm = CSR.from_scipy(sp_omm, device=dev)
+    X_omm = torch.from_numpy(X_omm_np).to(dev)
+    X_clu = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (sp_clu.shape[1], 32)).astype(np.float32)).to(dev)
+    X_p = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (sp_p.shape[1], 32)).astype(np.float32)).to(dev)
+    emit({"phase": "inputs", "matrix": "spmm_xl octet-mm",
+          "shape": list(sp_omm.shape), "nnz": int(sp_omm.nnz),
+          "seconds": time.perf_counter() - t})
+    P_omm = s5_pack("spmm_xl octet-mm pack_octet", lambda: octmod.pack_octet(
+        A_omm))
+    W_omm = s5_pack("spmm_xl octet-mm pack_dualgather k_tiles=1",
+                    lambda: dgmod.pack_dualgather(A_omm, k_tiles=1))
+    W_clu = s5_pack("clustered pack_dualgather k_tiles=1",
+                    lambda: dgmod.pack_dualgather(A_clu, k_tiles=1))
+    for case, P, X, sp_o, walk in [
+            ("spmm_xl octet-mm k=32", P_omm, X_omm, sp_omm, W_omm),
+            ("clustered octet (auto) k=32", P_clu["octet"], X_clu, sp_clu,
+             W_clu),
+            ("spgemm_xl P octet trim_group=8 (rem) k=32", pp_trim.p_packed,
+             X_p, sp_p, None)]:
+        s5_check("spmm_octet", case,
+                 lambda P=P, X=X: octmod._spmm_octet_cuda(P, X),
+                 lambda P=P, X=X: octmod.spmm_octet_reference(P, X), sp_o, X,
+                 walk=walk)
+    if pp_trim.p_packed.rem is None:
+        failures.append("the spgemm_xl trim pack has no rem section")
+    mark("check, slice 5")
+
     # -- 4. main path -------------------------------------------------------
     oracle = (c_np.astype(np.float64)
               + a_np.astype(np.float64) @ bt_dense.T.astype(np.float64))
@@ -1179,6 +1419,186 @@ def main() -> int:
     if not ok:
         failures.append("main path trisolve scattered")
 
+    # slice 5: spmm over octet packs, spmv/spmm over the spill-cap packs,
+    # spmv over both SELL packs, spmm on a power-law CSR with an octet
+    # skew base (first calls pack), then the direct solver and BiCGSTAB
+    t = time.perf_counter()
+    sp_pl = octet_skew_matrix()
+    A_pl = CSR.from_scipy(sp_pl, device=dev)
+    X_pl_np = np.random.default_rng(19).standard_normal(
+        (sp_pl.shape[1], 32)).astype(np.float32)
+    X_pl = torch.from_numpy(X_pl_np).to(dev)
+    emit({"phase": "inputs", "matrix": "power-law CSR, octet skew base",
+          "shape": list(sp_pl.shape), "nnz": int(sp_pl.nnz),
+          "max_col_deg": int(np.bincount(sp_pl.indices).max()),
+          "seconds": time.perf_counter() - t})
+    s5_paths = [
+        ("spmm(prepare_spmv(spmm_xl octet-mm)) k=32 (auto: octet)",
+         lambda: spmm(prepare_spmv(A_omm), X_omm),
+         sp_omm.astype(np.float64) @ X_omm_np, ("spmm_octet",)),
+        ("spmm(prepare_spmv(clustered)) k=32 (auto: octet)",
+         lambda: spmm(prepare_spmv(A_clu), X_clu),
+         sp_clu.astype(np.float64) @ X_clu.double().cpu().numpy(),
+         ("spmm_octet",)),
+        ("spmv prepare_spmv(XL, spill_cap=auto) k_tiles=1",
+         lambda: spmv(P_sp1, x_xl), y_xl_want,
+         ("spmv_dualgather", "spmv_pooled")),
+        ("spmv prepare_spmv(XL, spill_cap=auto, k_tiles=8)",
+         lambda: spmv(P_sp8, x_xl), y_xl_want,
+         ("spmv_dualgather_sb", "spmv_pooled")),
+        ("spmm prepare_spmv(XL, spill_cap=auto, k_tiles=8) k=32",
+         lambda: spmm(P_sp8, X_xl), Y_xl_want,
+         ("spmm_dualgather_sb", "spmv_pooled"))]
+    s5_paths += [(f"spmv {case}", lambda P=P, x=x_s: spmv(P, x),
+                  sp_s.astype(np.float64) @ x_s.double().cpu().numpy(),
+                  (kname,))
+                 for case, P, x_s, sp_s, kname in sell_main]
+    s5_paths += [
+        ("spmm power-law CSR (octet skew base) k=32 (auto)",
+         lambda: spmm(A_pl, X_pl), sp_pl.astype(np.float64) @ X_pl_np,
+         ("spmm_octet",))]
+    for name, run, want, expect in s5_paths:
+        _build.launch_counts.clear()
+        t = time.perf_counter()
+        y = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {kn: _build.launch_counts[kn] for kn in _build.KERNELS}
+        for kn, v in counts.items():
+            main_launches[kn] += v
+        y64 = y.double().cpu().numpy()
+        ok = (y64.shape == want.shape and bool(np.isfinite(y64).all())
+              and relative_check(y64, want)
+              and all(counts[kn] > 0 for kn in expect))
+        emit({"phase": "main_path", "path": name, "shape": list(y.shape),
+              "seconds": seconds, "launches": counts, "oracle_check": ok,
+              "ok": ok})
+        if not ok:
+            failures.append(f"main path {name}")
+        del y
+    from sparsematrix_tpu_torch.ops.spmm import _dg_pack_of
+    pl_pack = _dg_pack_of(A_pl)
+    if not isinstance(getattr(pl_pack, "base", None), octmod.Octet):
+        failures.append("the power-law CSR's skew base is not an octet")
+
+    # splu_solve: the waves engine at the bench's n = 65536 (the fused
+    # engine refuses that fill as too scattered) and the fused engine at
+    # n = 16384, a vector and a panel each (8 columns, one chain pane; 4
+    # for the fused engine, whose plain walk is long); against the same
+    # solve through the engines' plain versions on the card (1e-4 of the
+    # output scale) and fp64 SuperLU
+    import scipy.sparse.linalg as spla
+
+    from sparsematrix_tpu_torch.ops import splu_plans, splu_solve
+    from sparsematrix_tpu_torch.solvers import bicgstab
+    for engine, side in (("waves", 256), ("fused", 128)):
+        n_cv, sp_cv = convection_system(side)
+        A_cv = CSR.from_scipy(sp_cv, device=dev)
+        lu64 = spla.splu(sp_cv.astype(np.float64).tocsc())
+        solver = s4_pack(f"splu_plans {engine} convection n={n_cv}",
+                         lambda: splu_plans(A_cv, engine=engine))
+        if engine == "waves":
+            one, many = twmod.waves_forward_plain, twmod.mm_forward_plain
+            expect = (("trisolve_binv", "trisolve_chain",
+                       "trisolve_chain_mm"),)
+        else:
+            one = tfmod.fused_forward_plain
+            many = (lambda p, B: torch.stack(
+                [tfmod.fused_forward_plain(p, B[:, j])
+                 for j in range(B.shape[1])], dim=1))
+            expect = (("trisolve_fused",),)
+        for panel in (False, True):
+            width = 8 if engine == "waves" else 4
+            b_np = np.random.default_rng(20 + panel).standard_normal(
+                (n_cv, width) if panel else n_cv).astype(np.float32)
+            b_dev = torch.from_numpy(b_np).to(dev)
+            x_s, seconds, counts, launched = s4_run(
+                f"splu_solve {engine}", lambda: splu_solve(solver, b_dev),
+                expect)
+            f = many if panel else one
+            y = b_dev[solver.inv_perm_r.long()]
+            want_plain = f(solver.u_plan, f(solver.l_plan, y))[
+                solver.perm_c.long()]
+            torch.cuda.synchronize()
+            err = float((x_s.double() - want_plain.double()).abs().max())
+            scale = float(want_plain.abs().max())
+            oracle_ok = relative_check(x_s.double().cpu().numpy(),
+                                       lu64.solve(b_np.astype(np.float64)))
+            ok = launched and oracle_ok and err <= 1e-4 * scale
+            case = (f"splu_solve {engine} n={n_cv} "
+                    + (f"panel k={width}" if panel else "vector"))
+            errs[("splu_solve", case)] = err
+            emit({"phase": "main_path", "path": case, "seconds": seconds,
+                  "max_abs_err_vs_plain": err, "tol": 1e-4 * scale,
+                  "oracle_check": oracle_ok, "launches": counts, "ok": ok})
+            if not ok:
+                failures.append(f"main path {case}")
+            del x_s, want_plain
+        del solver
+
+    # bicgstab on the convection system at n = 65536: plain and with
+    # ILU(0) wave plans; the bench's checks (tol reached, true residual
+    # within 10·tol·‖b‖, the preconditioned run in at most 0.6× plain's
+    # iterations)
+    n_cv, sp_cv = convection_system(256)
+    A_cv = CSR.from_scipy(sp_cv, device=dev)
+    b_cv_np = np.random.default_rng(8).standard_normal(n_cv).astype(
+        np.float32)
+    b_cv = torch.from_numpy(b_cv_np).to(dev)
+    bn_cv = float(np.linalg.norm(b_cv_np))
+    Ap_cv = s4_pack("bicgstab convection n=65536 prepare_spmv",
+                    lambda: prepare_spmv(A_cv))
+    plans_cv = s4_pack("bicgstab convection n=65536 ilu0-waves plans",
+                       lambda: ilu0_waves_plans(A_cv))
+    plain_iters = None
+    bicg_cells = {}
+    for label, M, expect in (
+            ("plain", None, (dg_spmv,)),
+            ("ilu0-waves", lambda r: ilu_apply(plans_cv, r),
+             (dg_spmv, ("trisolve_chain",)))):
+        res, seconds, counts, launched = s4_run(
+            f"bicgstab {label}",
+            lambda: bicgstab(Ap_cv, b_cv, tol=1e-5, maxiter=4000, M=M),
+            expect)
+        x64 = res.x.double().cpu().numpy()
+        true_res = float(np.linalg.norm(sp_cv @ x64 - b_cv_np))
+        reached = (float(res.residual) <= 1e-5 * bn_cv * 1.001
+                   and res.iters < 4000)
+        ok = (reached and true_res <= 10 * 1e-5 * bn_cv and launched
+              and bool(np.isfinite(x64).all()))
+        if label == "plain":
+            plain_iters = res.iters
+        else:
+            ok = ok and res.iters <= 0.6 * plain_iters
+            # the same solve through the plain versions on the card (the
+            # operator's walk and the chain solves): the iterations agree
+            # within 2 (fp32 sums run in another order) and it reaches tol
+            ref = bicgstab(
+                lambda v: dgmod.spmv_dualgather_reference(Ap_cv, v), b_cv,
+                tol=1e-5, maxiter=4000,
+                M=lambda r: twmod.waves_forward_plain(
+                    plans_cv[1], twmod.waves_forward_plain(plans_cv[0], r)))
+            ref_true = float(np.linalg.norm(
+                sp_cv @ ref.x.double().cpu().numpy() - b_cv_np))
+            ok = (ok and abs(ref.iters - res.iters) <= 2
+                  and ref_true <= 10 * 1e-5 * bn_cv)
+            emit({"phase": "check", "kernel": "bicgstab ilu0-waves",
+                  "case": f"convection n={n_cv} against its plain version",
+                  "iters": res.iters, "plain_version_iters": ref.iters,
+                  "plain_version_true_rel_residual": ref_true / bn_cv,
+                  "ok": ok})
+            del ref
+        bicg_cells[label] = (M, res.iters)
+        emit({"phase": "main_path", "path": f"bicgstab convection n={n_cv} "
+              f"{label}", "iters_to_tol": res.iters,
+              "plain_iters": plain_iters, "reached_tol": reached,
+              "true_rel_residual": true_res / bn_cv, "seconds": seconds,
+              "launches": counts, "ok": ok})
+        if not ok:
+            failures.append(f"main path bicgstab {label}")
+        del res
+    mark("main path")
+
     for kn, v in main_launches.items():
         if v == 0:
             failures.append(f"kernel {kn} was not launched on the main path")
@@ -1255,13 +1675,10 @@ def main() -> int:
     yardsticks = {}
 
     def time_dg(kname, case, P, rhs, sp, val_bytes):
-        # the JAX package's minimum traffic (utils/roofline.py:59-75): each
-        # stored value and its 4-byte column index once, x/X read once,
-        # y/Y written once; the operations of the nonzeros
+        # the JAX package's minimum traffic (utils/roofline.py:59-75),
+        # counting only the rows of x/X that an entry names
         k = 1 if rhs.dim() == 1 else rhs.shape[1]
-        rows, cols = sp.shape
-        flops = 2.0 * sp.nnz * k
-        nbytes = sp.nnz * (val_bytes + 4) + 4 * cols * k + 4 * rows * k
+        flops, nbytes = sparse_work(sp, k, val_bytes)
         bms, by = bound(flops, nbytes)
         if id(sp) not in yardsticks:
             yardsticks[id(sp)] = cusparse(sp)
@@ -1291,9 +1708,7 @@ def main() -> int:
     s3_rows = {}
     for kname, cases in s3_cases.items():
         for case, kern, plain, sp, vb, x_dev in cases:
-            rows_, cols_ = sp.shape
-            flops = 2.0 * sp.nnz
-            nbytes = sp.nnz * (vb + 4) + 4 * cols_ + 4 * rows_
+            flops, nbytes = sparse_work(sp, 1, vb)
             bms, by = bound(flops, nbytes)
             if id(sp) not in yardsticks:
                 yardsticks[id(sp)] = cusparse(sp)
@@ -1475,6 +1890,52 @@ def main() -> int:
               "iters_to_tol": iters, "ms_to_tol": wms * iters,
               "device_ms_to_tol": dms * iters})
 
+    # slice 5: each new kernel and shape beside its plain version, cuSPARSE
+    # on the same CSR (SpMV, or SpMM for a matrix right-hand side) and, for
+    # the octet SpMM, the port's k_tiles=1 dual-gather walk on the same
+    # matrix; the bound is ``sparse_work``'s (plane padding counts against
+    # the kernel)
+    s5_rows = {}
+    for kname, cases in s5_cases.items():
+        for case, kern, plain, sp_c, rhs, extra in cases:
+            k_rhs = 1 if rhs.dim() == 1 else rhs.shape[1]
+            flops, nbytes = sparse_work(sp_c, k_rhs, 4)
+            bms, by = bound(flops, nbytes)
+            if id(sp_c) not in yardsticks:
+                yardsticks[id(sp_c)] = cusparse(sp_c)
+            S = yardsticks[id(sp_c)]
+            row = {"kernel": kname, "case": case, "ms": dev_ms(kern),
+                   "plain_ms": dev_ms(plain),
+                   "library_ms": dev_ms(lambda S=S, rhs=rhs: S @ rhs),
+                   "launches": main_launches[kname], "bound_ms": bms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "nnz": int(sp_c.nnz)}
+            if extra.get("walk") is not None:
+                row["kt1_walk_ms"] = dev_ms(
+                    lambda W=extra["walk"], rhs=rhs:
+                    _spmm_dualgather_cuda(W, rhs))
+            emit({"phase": "timing", **row})
+            s5_rows[(kname, case)] = row
+    # the spill-cap packs and the SELL packs through the public spmv,
+    # beside the auto pack of the same XL CSR; BiCGSTAB's iteration
+    for label, run in [
+            ("spmv XL spill_cap=auto k_tiles=1", lambda: spmv(P_sp1, x_xl)),
+            ("spmv XL spill_cap=auto k_tiles=8", lambda: spmv(P_sp8, x_xl)),
+            ("spmm XL spill_cap=auto k_tiles=8 k=32",
+             lambda: spmm(P_sp8, X_xl)),
+            ("spmv XL auto pack (no cap)", lambda: spmv(P_sb, x_xl)),
+            ("spmm XL auto pack (no cap) k=32", lambda: spmm(P_sb, X_xl))]:
+        emit({"phase": "e2e", "path": label, "wall_ms": wall_ms(run),
+              "device_ms": dev_ms(run)})
+    for label, (M, iters) in bicg_cells.items():
+        run = (lambda M=M: bicgstab(Ap_cv, b_cv, tol=0.0, maxiter=25, M=M))
+        dms, wms = dev_ms(run) / 25, wall_ms(run) / 25
+        emit({"phase": "e2e", "path": f"bicgstab convection n={n_cv}/{label}",
+              "per_iter_device_ms": dms, "per_iter_wall_ms": wms,
+              "iters_to_tol": iters, "ms_to_tol": wms * iters,
+              "device_ms_to_tol": dms * iters})
+    mark("timings")
+
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -1547,6 +2008,25 @@ def main() -> int:
         row = s4_rows[(name, case)]
         src = "trisolve_fused.cu" if name == "trisolve_fused" else \
             "trisolve_waves.cu"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sparsematrix_tpu_torch/csrc/{src}",
+            "replaces": f"sparsematrix_tpu/kernels/{replaces}",
+            "launches": main_launches[name],
+            "max_abs_err": errs[(name, case)], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "case": case})
+    for name, src, replaces, case in [
+            ("spmm_octet", "spmm_octet.cu", "spmv_octet.py:632",
+             "spmm_xl octet-mm k=32"),
+            ("spmv_pooled", "spmv_pooled.cu", "spmv_dualgather.py:1070",
+             "XL tail (spill_cap=auto) k_tiles=8 k=1"),
+            ("spmv_sell", "spmv_sell.cu", "spmv_pallas.py:197",
+             "sell XL tr=64"),
+            ("spmv_sell_rowpure", "spmv_sell.cu", "spmv_pallas.py:401",
+             "rowpure XL group=4 R=16")]:
+        row = s5_rows[(name, case)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"sparsematrix_tpu_torch/csrc/{src}",

@@ -20,6 +20,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace dg {
 
 constexpr int kLanes = 128;
@@ -40,13 +42,7 @@ struct Pack {
   int rows, cols, group, k_tiles;
 };
 
-template <bool BF16>
-__device__ __forceinline__ float load_val(const void* v, long long i) {
-  if (BF16)
-    return __uint_as_float(
-        (unsigned)__ldg(static_cast<const unsigned short*>(v) + i) << 16);
-  return __ldg(static_cast<const float*>(v) + i);
-}
+using common::load_val;
 
 template <bool SB>
 __device__ __forceinline__ long long slab_tile(const Pack& p, long long s) {

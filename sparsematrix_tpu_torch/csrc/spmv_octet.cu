@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "clos3.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -47,13 +48,7 @@ struct Pack {
   int rows, cols, group, k_octets;
 };
 
-template <bool BF16>
-__device__ __forceinline__ float load_val(const void* v, long long i) {
-  if (BF16)
-    return __uint_as_float(
-        (unsigned)__ldg(static_cast<const unsigned short*>(v) + i) << 16);
-  return __ldg(static_cast<const float*>(v) + i);
-}
+using common::load_val;
 
 template <bool BF16>
 __global__ void __launch_bounds__(kThreads)

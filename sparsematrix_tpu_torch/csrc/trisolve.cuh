@@ -24,6 +24,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace ts {
 
 constexpr int kLanes = 128;
@@ -33,13 +35,7 @@ constexpr int kWindow = 1024;
 constexpr int kQuarters = 4;                  // row groups of a block
 constexpr int kThreads = kQuarters * kLanes;  // 512: (quarter, lane)
 
-template <bool BF16>
-__device__ __forceinline__ float load_val(const void* v, long long i) {
-  if (BF16)
-    return __uint_as_float(
-        (unsigned)__ldg(static_cast<const unsigned short*>(v) + i) << 16);
-  return __ldg(static_cast<const float*>(v) + i);
-}
+using common::load_val;
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;

@@ -3,8 +3,9 @@
 The port's containers have the JAX containers' field names, so weights and
 packs built by the JAX package carry across field by field: take each
 array field with ``np.asarray`` and each static field as it is, and hand
-both here.  A nested container (a ``DualGather``'s ``t_pack``, an
-``Octet``'s ``rem``, a ``SkewSpmv``'s ``base``) is carried first and
+both here.  A nested container (a ``DualGather``'s ``t_pack`` or
+``tail``, an ``Octet``'s ``rem``, a ``SkewSpmv``'s ``base``, a legacy
+``SellRowLane``'s ``SellSpmv`` ``spill_packed``) is carried first and
 passed as it is; an optional field may be ``None``; a tuple of arrays (a
 ``ClosPermutePlan``'s plane triples) is carried element by element.
 Triangular-solve plans carry the same way: a ``TriWavesPlan``'s or
@@ -38,6 +39,7 @@ def kinds() -> dict:
     from ..kernels.spmv_dualgather import DualGather, PooledDG
     from ..kernels.spmv_octet import Octet
     from ..kernels.spmv_rowlane import SellRowLane
+    from ..kernels.spmv_sell import SellRowPure, SellSpmv
     from ..kernels.spmv_superblock import SellSuperblock
     from ..ops.permute import PermutePlan
     from ..ops.permute_clos import ClosPermutePlan
@@ -51,10 +53,10 @@ def kinds() -> dict:
     return {cls.__name__: cls
             for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL,
                         StripDense, DualGather, PooledDG, Octet, SellRowLane,
-                        SellSuperblock, PermutePlan, ClosPermutePlan,
-                        SkewSpmv, SpGEMMPlan, SpGEMMPacked, TriSolvePlan,
-                        TriFixPlan, TriLevelPlan, TriFusedPlan, TriWavesPlan,
-                        SpluSolver)}
+                        SellSuperblock, SellSpmv, SellRowPure, PermutePlan,
+                        ClosPermutePlan, SkewSpmv, SpGEMMPlan, SpGEMMPacked,
+                        TriSolvePlan, TriFixPlan, TriLevelPlan, TriFusedPlan,
+                        TriWavesPlan, SpluSolver)}
 
 
 def _tensor(arr, dev):

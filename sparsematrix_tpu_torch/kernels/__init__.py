@@ -7,10 +7,14 @@ from .spmm_blocked_ell import spmm_blocked_ell, spmm_blocked_ell_reference
 from .spmm_dualgather import spmm_dualgather, spmm_dualgather_reference
 from .spmv_dualgather import (DualGather, PooledDG, pack_dualgather,
                               spmv_dualgather, spmv_dualgather_reference)
-from .spmv_octet import (Octet, pack_octet, spmm_octet, spmv_octet,
+from .spmv_octet import (Octet, pack_octet, spmm_octet,
+                         spmm_octet_reference, spmv_octet,
                          spmv_octet_reference)
 from .spmv_rowlane import (SellRowLane, pack_sell_rowlane, spmv_sell_rowlane,
                            spmv_sell_rowlane_reference)
+from .spmv_sell import (SellRowPure, SellSpmv, pack_sell, pack_sell_rowpure,
+                        spmv_sell, spmv_sell_reference, spmv_sell_rowpure,
+                        spmv_sell_rowpure_reference)
 from .spmv_superblock import (SellSuperblock, pack_superblock,
                               spmv_superblock, spmv_superblock_reference)
 from .trisolve_fused import (TriFusedPlan, trisolve_fused_apply,
@@ -35,6 +39,15 @@ __all__ = [
     "spmv_octet",
     "spmv_octet_reference",
     "spmm_octet",
+    "spmm_octet_reference",
+    "SellSpmv",
+    "pack_sell",
+    "spmv_sell",
+    "spmv_sell_reference",
+    "SellRowPure",
+    "pack_sell_rowpure",
+    "spmv_sell_rowpure",
+    "spmv_sell_rowpure_reference",
     "SellRowLane",
     "pack_sell_rowlane",
     "spmv_sell_rowlane",

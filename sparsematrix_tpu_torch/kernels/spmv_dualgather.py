@@ -26,11 +26,17 @@ the numpy conflict repair where no compiler is found.  Padding slots hold
 value 0 with in-range pack indices; their column may lie past ``cols``
 in the last window, where x reads as 0.
 
+``spill_cap`` caps the entries a (tile, window, row) keeps in the body;
+the rest go to a pooled tail (``PooledDG``): slabs of one tile whose 8
+sublanes each point at any 128-column chunk of x, so deep rows of many
+windows share slabs.  Its packer is the JAX packer's greedy loop, so its
+planes come out equal too.
+
 ``spmv_dualgather(packed, x)`` runs ``spmv_dualgather_reference`` when all
-its inputs lie on the CPU, and otherwise launches the kernel or raises.
-It is differentiable in x and in ``vals`` (the JAX wrapper's custom VJP,
-``spmv_dualgather.py:1240-1273``).  The pooled spill tail (``spill_cap``,
-``PooledDG``) is not ported yet.
+its inputs lie on the CPU, and otherwise launches the body's kernel and,
+for a pack with a tail, ``csrc/spmv_pooled.cu`` on the same output, or
+raises.  It is differentiable in x and in the values of the body and the
+tail (the JAX wrapper's custom VJP, ``spmv_dualgather.py:1240-1273``).
 """
 from __future__ import annotations
 
@@ -47,27 +53,25 @@ from ..formats.csr import CSR
 from . import _build
 
 __all__ = ["DualGather", "PooledDG", "pack_dualgather", "spmv_dualgather",
-           "spmv_dualgather_reference"]
+           "spmv_dualgather_reference", "pooled_plain"]
 
 _W = 1024
 _LANES = 128
 _T = 128  # rows per tile (lane = row slot, no lane sharing)
 
-_SPILL_TODO = ("the pooled spill tail (spill_cap, kernel row 12) is not "
-               "ported yet (ROADMAP.md, Queue 2 item 2)")
-
-
 @sparse_container
 @dataclasses.dataclass(frozen=True)
 class PooledDG:
-    """Cross-window pooled spill slabs (container only: their kernel is
-    not ported yet, ``_SPILL_TODO``)."""
+    """Cross-window pooled spill slabs: each sublane of a slab carries its
+    own global 128-column chunk pointer, so deep-row tail entries of
+    different windows share slabs.  The dual-gather planes otherwise; idxA
+    picks one of the slab's 8 pointers (plain int8, never nibble-packed)."""
 
     ptr: torch.Tensor  # (n_groups, group, 8) int32: global chunk per sublane
-    idxA: torch.Tensor  # (n_groups, group*8, 128) int8
-    idxB: torch.Tensor  # (n_groups, group*8, 128) int8
+    idxA: torch.Tensor  # (n_groups, group*8, 128) int8: pointer per (u, cl)
+    idxB: torch.Tensor  # (n_groups, group*8, 128) int8: cl per (u, l)
     vals: torch.Tensor  # (n_groups, group*8, 128)
-    group_tile: torch.Tensor  # (n_groups,) int32
+    group_tile: torch.Tensor  # (n_groups,) int32, ascending
     shape: Tuple[int, int] = static_field()
     n_tiles: int = static_field()
     n_win: int = static_field()
@@ -86,7 +90,7 @@ class DualGather:
     slab_win: torch.Tensor  # (n_groups, group) int32
     slab_tloc: Optional[torch.Tensor]  # (n_groups, group) int32 (k_tiles>1)
     commit: Optional[torch.Tensor]  # (n_groups,) int32 (k_tiles>1)
-    tail: Optional[PooledDG]  # pooled spill slabs (not ported)
+    tail: Optional[PooledDG]  # pooled spill slabs (spill_cap packs)
     t_pack: Optional["DualGather"]  # packed A^T for the backward pass
     shape: Tuple[int, int] = static_field()
     n_tiles: int = static_field()
@@ -116,6 +120,126 @@ class DualGather:
 # ---------------------------------------------------------------------------
 # host packer (numpy; the JAX packer's algorithm)
 # ---------------------------------------------------------------------------
+
+def _spill_mask(r, c, rows, cols, cap):
+    """True for entries whose occurrence rank within (tile, window, row)
+    is >= cap: the deep-row tail that window-scoped slabs cannot pack."""
+    t = r // _T
+    l = r % _T
+    w = c // _W
+    n_win = max(-(-cols // _W), 1)
+    key = (t * n_win + w) * np.int64(_T) + l
+    order = np.argsort(key, kind="stable")
+    ko = key[order]
+    n = r.size
+    new = np.empty(n, bool)
+    new[0] = True
+    new[1:] = ko[1:] != ko[:-1]
+    run_start = np.maximum.accumulate(np.where(new, np.arange(n), 0))
+    d = np.empty(n, np.int64)
+    d[order] = np.arange(n) - run_start
+    return d >= cap
+
+
+def _pack_pooled(r, c, v, rows, cols, group, dtype):
+    """Greedy pooled-slab packer for the spill tail: per tile, take the 8
+    chunks with the most entries left, fill one slab (each entry at the
+    first free sublane from ``(l + cl) % 8`` whose (u, cl) cell is free or
+    already points at its chunk), repeat.  The JAX packer's loop, on
+    Python lists; the same planes."""
+    n_tiles = -(-rows // _T)
+    n_win = max(-(-cols // _W), 1)
+    t = (r // _T).astype(np.int64)
+    l_of = (r % _T).tolist()
+    chunk_of = (c // _LANES).tolist()
+    cl_of = (c % _LANES).tolist()
+
+    slab_tile, slab_ptr, placed_slabs = [], [], []
+    order = np.argsort(t, kind="stable")
+    bounds = np.searchsorted(t[order], np.arange(n_tiles + 1))
+    for ti in range(n_tiles):
+        sel = order[bounds[ti]:bounds[ti + 1]].tolist()
+        if not sel:
+            continue
+        by_chunk: dict = {}
+        for e in sel:
+            by_chunk.setdefault(chunk_of[e], []).append(e)
+        while by_chunk:
+            top = sorted(by_chunk, key=lambda k: -len(by_chunk[k]))[:8]
+            ptr = (top + [top[0]] * (8 - len(top)))
+            rowused = bytearray(8 * _T)
+            cellslot = [-1] * (8 * _LANES)
+            placed = []  # (u, l, cl, k, entry)
+            for k, ck in enumerate(top):
+                left = []
+                for e in by_chunk[ck]:
+                    le, cle = l_of[e], cl_of[e]
+                    u0 = (le + cle) % 8
+                    for uu in range(u0, u0 + 8):
+                        u = uu & 7
+                        if rowused[u * _T + le]:
+                            continue
+                        cs = cellslot[u * _LANES + cle]
+                        if cs == -1 or cs == k:
+                            rowused[u * _T + le] = 1
+                            cellslot[u * _LANES + cle] = k
+                            placed.append((u, le, cle, k, e))
+                            break
+                    else:
+                        left.append(e)
+                if left:
+                    by_chunk[ck] = left
+                else:
+                    del by_chunk[ck]
+            slab_tile.append(ti)
+            slab_ptr.append(ptr)
+            placed_slabs.append(placed)
+
+    n_slabs = max(len(slab_tile), 1)
+    if not slab_tile:
+        slab_tile = [0]
+        slab_ptr = [[0] * 8]
+        placed_slabs = [[]]
+    stile = np.asarray(slab_tile, np.int64)
+    counts = np.bincount(stile, minlength=n_tiles)
+    if group is None:
+        group = 1
+        for g in (32, 16, 8, 4, 2):
+            waste = ((-(-counts // g) * g).sum() - n_slabs) / max(n_slabs, 1)
+            if waste <= 0.15:
+                group = g
+                break
+    tile_groups = -(-counts // group)
+    padded = tile_groups * group
+    tile_offset = np.concatenate([[0], np.cumsum(padded)])
+    first_of_tile = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    rank = np.arange(n_slabs) - first_of_tile[stile]
+    slot = tile_offset[stile] + rank
+    total = int(tile_offset[-1])
+    n_groups = total // group
+    iA = np.zeros((total, 8, _LANES), np.int8)
+    iB = np.zeros((total, 8, _LANES), np.int8)
+    vv = np.zeros((total, 8, _LANES), dtype)
+    pt = np.zeros((total, 8), np.int64)
+    pt[slot] = np.asarray(slab_ptr, np.int64)
+    n_placed = sum(len(p) for p in placed_slabs)
+    if n_placed:
+        s_of = np.repeat(slot, [len(p) for p in placed_slabs])
+        u, le, cle, k, e = np.asarray(
+            [q for p in placed_slabs for q in p], np.int64).T
+        iA[s_of, u, cle] = k
+        iB[s_of, u, le] = cle
+        vv[s_of, u, le] = v[e]
+    group_tile = np.repeat(np.arange(n_tiles), tile_groups)
+    return dict(
+        ptr=pt.reshape(n_groups, group, 8),
+        idxA=iA.reshape(n_groups, group * 8, _LANES),
+        idxB=iB.reshape(n_groups, group * 8, _LANES),
+        vals=vv.reshape(n_groups, group * 8, _LANES),
+        group_tile=group_tile,
+        n_tiles=n_tiles, n_win=n_win, group=group,
+    )
+
 
 def _pair_windows(deg):
     """Per-tile greedy matching of windows into pairs minimizing the joint
@@ -507,7 +631,7 @@ _ASSIGN_CACHE: dict = {}
 
 def pack_dualgather(csr: CSR, group: int | None = None,
                     with_transpose: bool = False,
-                    spill_cap: int | None = None,
+                    spill_cap: int | str | None = None,
                     k_tiles: int = 1,
                     dtype=None,
                     two_win: bool = False,
@@ -520,25 +644,51 @@ def pack_dualgather(csr: CSR, group: int | None = None,
     backward pass.  ``dtype=torch.bfloat16`` stores the values in bf16
     (accumulation stays fp32).  ``k_tiles > 1`` packs superblocks of
     ``k_tiles`` tiles; ``two_win`` (superblocks only) gives each slab two
-    windows.  ``spill_cap`` (the pooled tail) is not ported yet.
+    windows.  ``spill_cap`` caps the entries a (tile, window, row) keeps in
+    the body and pools the rest in the tail (``PooledDG``); ``"auto"``
+    takes 8·round(mean / 8) of the mean row-window degree, or no cap below
+    a mean of 8.  It excludes ``two_win``.
     """
     if two_win and k_tiles <= 1:
         raise ValueError("two_win requires the superblock path (k_tiles>1)")
     if two_win and spill_cap is not None:
         raise ValueError("two_win is incompatible with spill_cap")
-    if spill_cap is not None:
-        raise NotImplementedError(f"pack_dualgather: {_SPILL_TODO}")
     dev = csr.device if device is None else torch.device(device)
     sp = csr.to_scipy().tocoo()
     rows, cols = sp.shape
     r = sp.row.astype(np.int64)
     c = sp.col.astype(np.int64)
     v = sp.data
+    tail = None
+    if spill_cap == "auto" and r.size:
+        n_win = max(-(-cols // _W), 1)
+        # mean entries a (row, window), rounded to the slab capacity
+        mean_deg = r.size / max(-(-rows // _T) * _T * n_win, 1)
+        cap = 8 * max(1, int(round(mean_deg / 8)))
+        spill_cap = cap if mean_deg >= 8 else None
+    if spill_cap is not None and r.size:
+        sm = _spill_mask(r, c, rows, cols, int(spill_cap))
+        if sm.any():
+            parrs = _pack_pooled(r[sm], c[sm], v[sm], rows, cols, None,
+                                 v.dtype)
+            tvals = torch.from_numpy(parrs["vals"]).to(dev)
+            tail = PooledDG(
+                ptr=_put(parrs["ptr"], torch.int32, dev),
+                idxA=_put(parrs["idxA"], torch.int8, dev),
+                idxB=_put(parrs["idxB"], torch.int8, dev),
+                vals=tvals if dtype is None else tvals.to(dtype),
+                group_tile=_put(parrs["group_tile"], torch.int32, dev),
+                shape=(rows, cols), n_tiles=parrs["n_tiles"],
+                n_win=parrs["n_win"], group=parrs["group"],
+                nnz=int(sm.sum()))
+            r, c, v = r[~sm], c[~sm], v[~sm]
     assigned = None
     pairtab = None
     if two_win and r.size:
         w_ids, ch_ids, pairtab = _two_win_ids(r, c, rows, cols)
-    if r.size:
+    if tail is None and r.size:
+        # the assignment depends on (r, c) only: cached per container, so
+        # re-packs at other (group, k_tiles, dtype) are nearly free
         key = (id(csr), two_win)
         ent = _ASSIGN_CACHE.get(key)
         if ent is not None and ent[0]() is csr:
@@ -581,20 +731,18 @@ def pack_dualgather(csr: CSR, group: int | None = None,
         idxA_np = (ia4[:, 0::2] | (ia4[:, 1::2] << 4)).reshape(
             ngq, (arrs["group"] // 2) * 8, _LANES).astype(np.int8)
 
-    def put(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
-
     vals = torch.from_numpy(arrs["vals"]).to(dev)
     return DualGather(
-        idxA=put(idxA_np, torch.int8),
-        idxB=put(arrs["idxB"], torch.int8),
+        idxA=_put(idxA_np, torch.int8, dev),
+        idxB=_put(arrs["idxB"], torch.int8, dev),
         vals=vals if dtype is None else vals.to(dtype),
-        group_tile=put(arrs["group_tile"], torch.int32),
-        slab_win=put(arrs["slab_win"], torch.int32),
-        slab_tloc=(put(arrs["slab_tloc"], torch.int32)
+        group_tile=_put(arrs["group_tile"], torch.int32, dev),
+        slab_win=_put(arrs["slab_win"], torch.int32, dev),
+        slab_tloc=(_put(arrs["slab_tloc"], torch.int32, dev)
                    if k_tiles > 1 else None),
-        commit=put(arrs["commit"], torch.int32) if k_tiles > 1 else None,
-        tail=None,
+        commit=(_put(arrs["commit"], torch.int32, dev)
+                if k_tiles > 1 else None),
+        tail=tail,
         t_pack=t_pack,
         shape=(rows, cols),
         n_tiles=arrs["n_tiles"],
@@ -607,6 +755,10 @@ def pack_dualgather(csr: CSR, group: int | None = None,
         nibble=bool(nibble),
         two_win=two_win,
     )
+
+
+def _put(a, dt, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
 
 # the JAX kernel's scalar-prefetch budget, which sets ``splits``
@@ -667,11 +819,10 @@ def _slab_windows(packed: DualGather):
 
 
 def _check_pack(packed: DualGather, fn: str) -> None:
-    if packed.tail is not None:
-        raise NotImplementedError(f"{fn}: {_SPILL_TODO}")
-    if packed.vals.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{fn}: values must be fp32 or bf16, not "
-                         f"{packed.vals.dtype}")
+    for t in (packed.vals,) + ((packed.tail.vals,) if packed.tail else ()):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{fn}: values must be fp32 or bf16, not "
+                             f"{t.dtype}")
 
 
 # slabs per step of the plain walk: bounds its gathered temporaries
@@ -681,7 +832,8 @@ _PLAIN_ELEMS = 1 << 24
 def _walk_plain(packed: DualGather, X: torch.Tensor) -> torch.Tensor:
     """The two-gather walk for a (cols, k) fp32 right-hand side: per slab
     ``t1 = xw[idxA]`` (dim 1), ``out = t1[idxB]`` (dim 2), times vals,
-    summed over sublanes, added per tile.  Returns (rows, k) fp32."""
+    summed over sublanes, added per tile; then the pooled tail's cells.
+    Returns (rows, k) fp32."""
     rows, cols = packed.shape
     k = X.shape[1]
     dev = X.device
@@ -708,7 +860,45 @@ def _walk_plain(packed: DualGather, X: torch.Tensor) -> torch.Tensor:
         out = torch.gather(t1, 2, iB[sl, :, :, None].expand(-1, -1, -1, k))
         part = (vals[sl].float()[..., None] * out).sum(dim=1)  # (n, 128, k)
         y.index_add_(0, tiles[sl], part)
-    return y[: packed.n_tiles].reshape(-1, k)[:rows]
+    y = y[: packed.n_tiles].reshape(-1, k)[:rows]
+    if packed.tail is not None:
+        y = y + pooled_plain(packed.tail, X)
+    return y
+
+
+def _slot_row_col_pooled(tail: PooledDG):
+    """Per-slot (row, col) of pooled slabs, each (n_groups, group*8, 128)
+    int64: the chunk is the slab's pointer at ``idxA[u, idxB[u, l]]``."""
+    n_groups, GH, _ = tail.idxB.shape
+    iB = tail.idxB.reshape(n_groups, tail.group, 8, _LANES).long() & 127
+    iA = tail.idxA.reshape(n_groups, tail.group, 8, _LANES).long() & 7
+    slot = torch.gather(iA, 3, iB)
+    chunk = torch.gather(tail.ptr.long()[..., None].expand_as(slot), 2, slot)
+    col = chunk * _LANES + iB
+    lane = torch.arange(_LANES, device=col.device)
+    row = tail.group_tile.long()[:, None, None, None] * _T + lane
+    return (row.expand_as(col).reshape(n_groups, GH, _LANES),
+            col.reshape(n_groups, GH, _LANES))
+
+
+def pooled_plain(tail: PooledDG, X: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pooled tail's ``T @ X`` for a (cols, k) fp32
+    X (the JAX ``_pooled_forward``): (rows, k) fp32."""
+    rows, cols = tail.shape
+    k = X.shape[1]
+    row, col = _slot_row_col_pooled(tail)
+    # rows past ``rows`` (the ragged last tile) land in the spare row
+    row = row.clamp(max=rows)
+    Xp = torch.zeros((tail.n_win * _W, k), dtype=torch.float32,
+                     device=X.device)
+    Xp[:cols] = X
+    y = torch.zeros((rows + 1, k), dtype=torch.float32, device=X.device)
+    step = max(1, _PLAIN_ELEMS // (tail.group * _W * k))
+    for g0 in range(0, row.shape[0], step):
+        sl = slice(g0, g0 + step)
+        prod = tail.vals[sl].float()[..., None] * Xp[col[sl]]
+        y.index_add_(0, row[sl].reshape(-1), prod.reshape(-1, k))
+    return y[:rows]
 
 
 def spmv_dualgather_reference(packed: DualGather,
@@ -741,8 +931,8 @@ def _slot_row_col(packed: DualGather):
 
 
 def _dualgather_matvec_t(packed: DualGather, g: torch.Tensor) -> torch.Tensor:
-    """``A^T @ g`` from the slab planes alone (the plain scatter for the
-    backward pass when no transposed pack was built)."""
+    """``A^T @ g`` from the slab planes alone, tail included (the plain
+    scatter for the backward pass when no transposed pack was built)."""
     rows, cols = packed.shape
     row, col = _slot_row_col(packed)
     gpad = torch.cat([g.float(), g.new_zeros(1, dtype=torch.float32)])
@@ -750,12 +940,16 @@ def _dualgather_matvec_t(packed: DualGather, g: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(cols + 1, dtype=torch.float32, device=g.device)
     # padding slots past ``cols`` land in the spare slot and are dropped
     out.index_add_(0, col.clamp(max=cols).reshape(-1), gv.reshape(-1))
+    if packed.tail is not None:
+        trow, tcol = _slot_row_col_pooled(packed.tail)
+        tgv = gpad[trow.clamp(max=rows)] * packed.tail.vals.float()
+        out.index_add_(0, tcol.clamp(max=cols).reshape(-1), tgv.reshape(-1))
     return out[:cols]
 
 
-def _dvals(packed: DualGather, xg: torch.Tensor) -> torch.Tensor:
-    """Masked value cotangent: ``xg`` at stored slots, 0 at padding slots
-    (``vals == 0``), in the values' type."""
+def _dvals(packed, xg: torch.Tensor) -> torch.Tensor:
+    """Masked value cotangent of a body or tail: ``xg`` at stored slots, 0
+    at padding slots (``vals == 0``), in the values' type."""
     zero = torch.zeros((), dtype=xg.dtype, device=xg.device)
     return torch.where(packed.vals != 0, xg, zero).to(packed.vals.dtype)
 
@@ -835,6 +1029,58 @@ def launch_walk(source: str, packed: DualGather, X: torch.Tensor,
     _build.launch_counts[source + ("_sb" if packed.k_tiles > 1 else "")] += 1
 
 
+_POOLED_ARGTYPES = (
+    ctypes.c_void_p,  # ptr (n_groups, group, 8) int32
+    ctypes.c_void_p,  # idxA int8
+    ctypes.c_void_p,  # idxB int8
+    ctypes.c_void_p,  # vals fp32 or bf16
+    ctypes.c_void_p,  # group_tile (n_groups,) int32
+    ctypes.c_void_p,  # X (cols, k) fp32
+    ctypes.c_void_p,  # Y (rows, k) fp32, holding the body's sum
+    ctypes.c_int,  # rows
+    ctypes.c_int,  # cols
+    ctypes.c_int,  # k
+    ctypes.c_longlong,  # n_groups
+    ctypes.c_int,  # group
+    ctypes.c_int,  # bf16 values
+    ctypes.c_void_p,  # stream
+)
+
+
+def launch_pooled(tail: PooledDG, X: torch.Tensor, Y: torch.Tensor) -> None:
+    """Launches ``csrc/spmv_pooled.cu``: ``Y += T @ X`` over the pooled
+    tail, all k columns of X (cols, k) at once, Y (rows, k) fp32, both
+    contiguous on the tail's CUDA device."""
+    planes = (tail.ptr, tail.idxA, tail.idxB, tail.vals, tail.group_tile)
+    if not all(t.device == X.device and t.is_contiguous()
+               for t in planes + (X, Y)):
+        raise ValueError("spmv_pooled: the tail, X and Y must be contiguous "
+                         "on one CUDA device")
+    n_groups, group = tail.idxB.shape[0], tail.group
+    if (tail.idxA.dtype != torch.int8 or tail.idxB.dtype != torch.int8
+            or tail.ptr.dtype != torch.int32
+            or tail.group_tile.dtype != torch.int32
+            or tail.idxA.shape != (n_groups, group * 8, _LANES)
+            or tail.idxB.shape != tail.idxA.shape
+            or tail.vals.shape != tail.idxA.shape
+            or tail.ptr.shape != (n_groups, group, 8)
+            or tail.group_tile.shape != (n_groups,)):
+        raise ValueError("spmv_pooled: inconsistent tail planes")
+    rows, cols = tail.shape
+    k = X.shape[1]
+    if rows == 0 or cols == 0 or k == 0:
+        return
+    fn = _build.load("spmv_pooled", _POOLED_ARGTYPES)
+    with torch.cuda.device(X.device):
+        err = fn(*(t.data_ptr() for t in planes), X.data_ptr(), Y.data_ptr(),
+                 rows, cols, k, n_groups, group,
+                 int(tail.vals.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmv_pooled: launch failed with CUDA error {err}")
+    _build.launch_counts["spmv_pooled"] += 1
+
+
 def _spmv_dualgather_cuda(packed: DualGather, x: torch.Tensor) -> torch.Tensor:
     _check_pack(packed, "spmv_dualgather")
     rows, cols = packed.shape
@@ -843,7 +1089,10 @@ def _spmv_dualgather_cuda(packed: DualGather, x: torch.Tensor) -> torch.Tensor:
                          f"length {cols}, not {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
     y = torch.zeros(rows, dtype=torch.float32, device=x.device)
-    launch_walk("spmv_dualgather", packed, x.contiguous()[:, None], y[:, None])
+    X = x.contiguous()[:, None]
+    launch_walk("spmv_dualgather", packed, X, y[:, None])
+    if packed.tail is not None:
+        launch_pooled(packed.tail, X, y[:, None])
     return y
 
 
@@ -853,10 +1102,15 @@ def _dualgather_forward(packed: DualGather, x: torch.Tensor) -> torch.Tensor:
     return _spmv_dualgather_cuda(packed, x)
 
 
+def _tail_vals(packed: DualGather) -> Optional[torch.Tensor]:
+    return packed.tail.vals if packed.tail is not None else None
+
+
 class _SpmvDualGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed, vals, x):
-        # ``vals`` is ``packed.vals``, passed so autograd tracks it
+    def forward(ctx, packed, vals, tail_vals, x):
+        # ``vals`` and ``tail_vals`` are the body's and the tail's values,
+        # passed so autograd tracks them
         ctx.packed = packed
         ctx.save_for_backward(x)
         return _dualgather_forward(packed, x)
@@ -865,26 +1119,32 @@ class _SpmvDualGather(torch.autograd.Function):
     def backward(ctx, g):
         packed = ctx.packed
         (x,) = ctx.saved_tensors
-        gx = dvals = None
+        gx = dvals = dtail = None
         g = g.contiguous()
-        if ctx.needs_input_grad[2]:
+        if ctx.needs_input_grad[3]:
             if packed.t_pack is not None:
                 gx = _dualgather_forward(packed.t_pack, g)
             else:
                 gx = _dualgather_matvec_t(packed, g)
             gx = gx.to(x.dtype)
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             rows, cols = packed.shape
-            row, col = _slot_row_col(packed)
             xpad = torch.zeros(packed.n_win * _W, dtype=torch.float32,
                                device=x.device)
             xpad[:cols] = x
             gpad = torch.cat([g.float(), g.new_zeros(1, dtype=torch.float32)])
-            dvals = _dvals(packed, xpad[col] * gpad[row.clamp(max=rows)])
-        return None, dvals, gx
+            if ctx.needs_input_grad[1]:
+                row, col = _slot_row_col(packed)
+                dvals = _dvals(packed, xpad[col] * gpad[row.clamp(max=rows)])
+            if ctx.needs_input_grad[2]:
+                trow, tcol = _slot_row_col_pooled(packed.tail)
+                dtail = _dvals(packed.tail,
+                               xpad[tcol] * gpad[trow.clamp(max=rows)])
+        return None, dvals, dtail, gx
 
 
 def spmv_dualgather(packed: DualGather, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` through the dual-gather layout (fp32 result),
-    differentiable in x and in ``packed.vals``."""
-    return _SpmvDualGather.apply(packed, packed.vals, x)
+    """``y = A @ x`` through the dual-gather layout (fp32 result), the
+    pooled tail included; differentiable in x and in the values of the
+    body and the tail."""
+    return _SpmvDualGather.apply(packed, packed.vals, _tail_vals(packed), x)

@@ -23,10 +23,12 @@ is found, the numpy repair (other, valid planes, equal to the JAX numpy
 path's).  Like the JAX packer it ignores a ``trim_group`` ≥ ``group``.
 
 ``spmv_octet(packed, x)`` runs ``spmv_octet_reference`` when all its
-inputs lie on the CPU, and otherwise launches the kernel (a second launch
-for ``rem``) or raises.  It is differentiable in x and in the values of
-both sections (the JAX wrapper's custom VJP, ``spmv_octet.py:526-571``).
-The multi-RHS product ``spmm_octet`` (kernel row 16) is not ported yet.
+inputs lie on the CPU, and otherwise launches ``csrc/spmv_octet.cu`` (a
+second launch for ``rem``) or raises.  The multi-RHS product
+``spmm_octet(packed, X)`` does the same with ``spmm_octet_reference`` and
+``csrc/spmm_octet.cu``.  Both are differentiable in their right-hand side
+and in the values of both sections (the JAX wrappers' custom VJPs,
+``spmv_octet.py:526-571`` and ``:698-735``).
 """
 from __future__ import annotations
 
@@ -43,14 +45,11 @@ from . import _build
 from .spmv_dualgather import _SMEM_PREFETCH_BUDGET
 
 __all__ = ["Octet", "pack_octet", "spmv_octet", "spmv_octet_reference",
-           "spmm_octet"]
+           "spmm_octet", "spmm_octet_reference"]
 
 _LANES = 128
 _ROWS_PER_OCTET = 1024
 _W = 1024  # window width (8 chunks × 128)
-
-SPMM_OCTET_TODO = ("spmm over an octet pack (kernel row 16, spmm_octet) is "
-                   "not ported yet (ROADMAP.md, Queue 2 item 1)")
 
 
 @sparse_container
@@ -453,7 +452,7 @@ def spmv_octet_reference(packed: Octet, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-_ARGTYPES = (
+_PLANE_ARGTYPES = (
     ctypes.c_void_p,  # pos int8
     ctypes.c_void_p,  # chk int8
     ctypes.c_void_p,  # route int8
@@ -461,24 +460,32 @@ _ARGTYPES = (
     ctypes.c_void_p,  # group_super (n_groups,) int32
     ctypes.c_void_p,  # slab_win (n_slabs,) int32
     ctypes.c_void_p,  # slab_oloc (n_slabs,) int32
-    ctypes.c_void_p,  # x (cols,) fp32
-    ctypes.c_void_p,  # y (rows,) fp32, zeroed
+    ctypes.c_void_p,  # x (cols,) or X (cols, k) fp32
+    ctypes.c_void_p,  # y (rows,) or Y (rows, k) fp32, zeroed
     ctypes.c_int,  # rows
     ctypes.c_int,  # cols
+)
+_TAIL_ARGTYPES = (
     ctypes.c_longlong,  # n_slabs
     ctypes.c_int,  # group
     ctypes.c_int,  # k_octets
     ctypes.c_int,  # bf16 values
     ctypes.c_void_p,  # stream
 )
+# spmv_octet(planes..., rows, cols, n_slabs, ...); spmm_octet adds k
+# after cols
+_ARGTYPES = {"spmv_octet": _PLANE_ARGTYPES + _TAIL_ARGTYPES,
+             "spmm_octet": _PLANE_ARGTYPES + (ctypes.c_int,) + _TAIL_ARGTYPES}
 
 
-def _launch(packed: Octet, x: torch.Tensor, y: torch.Tensor) -> None:
-    """``y += A @ x`` over one section on the card."""
+def _launch(source: str, packed: Octet, X: torch.Tensor,
+            Y: torch.Tensor) -> None:
+    """``Y += A @ X`` over one section on the card: ``csrc/spmv_octet.cu``
+    for a vector, ``csrc/spmm_octet.cu`` for a (cols, k) matrix."""
     planes = (packed.pos, packed.chk, packed.route, packed.vals,
               packed.group_super, packed.slab_win, packed.slab_oloc)
-    if not all(t.device == x.device and t.is_contiguous() for t in planes):
-        raise ValueError("spmv_octet: the pack and x must be contiguous on "
+    if not all(t.device == X.device and t.is_contiguous() for t in planes):
+        raise ValueError(f"{source}: the pack and x must be contiguous on "
                          "one CUDA device")
     n_groups, group = packed.route.shape[0], packed.group
     if (any(t.dtype != torch.int8 for t in planes[:3])
@@ -488,17 +495,18 @@ def _launch(packed: Octet, x: torch.Tensor, y: torch.Tensor) -> None:
             or packed.group_super.shape != (n_groups,)
             or packed.slab_win.numel() != n_groups * group
             or packed.slab_oloc.numel() != n_groups * group):
-        raise ValueError("spmv_octet: inconsistent pack planes")
+        raise ValueError(f"{source}: inconsistent pack planes")
     rows, cols = packed.shape
-    fn = _build.load("spmv_octet", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(*(t.data_ptr() for t in planes), x.data_ptr(), y.data_ptr(),
-                 rows, cols, packed.n_slabs, group, packed.k_octets,
+    k = () if source == "spmv_octet" else (X.shape[1],)
+    fn = _build.load(source, _ARGTYPES[source])
+    with torch.cuda.device(X.device):
+        err = fn(*(t.data_ptr() for t in planes), X.data_ptr(), Y.data_ptr(),
+                 rows, cols, *k, packed.n_slabs, group, packed.k_octets,
                  int(packed.vals.dtype == torch.bfloat16),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"spmv_octet: launch failed with CUDA error {err}")
-    _build.launch_counts["spmv_octet"] += 1
+        raise RuntimeError(f"{source}: launch failed with CUDA error {err}")
+    _build.launch_counts[source] += 1
 
 
 def _spmv_octet_cuda(packed: Octet, x: torch.Tensor) -> torch.Tensor:
@@ -513,7 +521,7 @@ def _spmv_octet_cuda(packed: Octet, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     section = packed
     while section is not None:
-        _launch(section, x, y)
+        _launch("spmv_octet", section, x, y)
         section = section.rem
     return y
 
@@ -581,5 +589,131 @@ def spmv_octet(packed: Octet, x: torch.Tensor) -> torch.Tensor:
     return _SpmvOctet.apply(packed, packed.vals, rem_vals, x)
 
 
+# ---------------------------------------------------------------------------
+# the multi-RHS product (kernel row 16)
+# ---------------------------------------------------------------------------
+
+# cells per step of the plain SpMM: bounds its gathered temporaries
+_PLAIN_ELEMS = 1 << 24
+
+
+def _check_mm(packed: Octet, X: torch.Tensor) -> None:
+    if packed.vals.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("spmm_octet: values must be fp32 or bf16, not "
+                         f"{packed.vals.dtype}")
+    cols = packed.shape[1]
+    if X.dtype != torch.float32 or X.dim() != 2 or X.shape[0] != cols:
+        raise ValueError(f"spmm_octet: X must be fp32 of shape ({cols}, k), "
+                         f"not {X.dtype} {tuple(X.shape)}")
+
+
+def _section_plain_mm(packed: Octet, X: torch.Tensor) -> torch.Tensor:
+    rows, cols = packed.shape
+    k = X.shape[1]
+    row, col = _slot_row_col(packed)  # (n_groups, group, 8, 128)
+    Xpad = torch.zeros((packed.n_win * _W, k), dtype=torch.float32,
+                       device=X.device)
+    Xpad[:cols] = X
+    vals = packed.vals.reshape(row.shape)
+    # rows past ``rows`` (padding cells, the ragged last octet) land in
+    # the spare row and are dropped
+    row = row.clamp(max=rows)
+    Y = torch.zeros((rows + 1, k), dtype=torch.float32, device=X.device)
+    step = max(1, _PLAIN_ELEMS // (packed.group * _W * k))
+    for g0 in range(0, row.shape[0], step):
+        sl = slice(g0, g0 + step)
+        prod = vals[sl].float()[..., None] * Xpad[col[sl]]
+        Y.index_add_(0, row[sl].reshape(-1), prod.reshape(-1, k))
+    return Y[:rows]
+
+
+def spmm_octet_reference(packed: Octet, X: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``Y = A @ X`` (the JAX ``_octet_mm_forward``): fp32
+    X of shape (cols, k), fp32 or bf16 values, fp32 accumulation and
+    result, ``rem`` included."""
+    _check_mm(packed, X)
+    Y = _section_plain_mm(packed, X)
+    if packed.rem is not None:
+        Y = Y + spmm_octet_reference(packed.rem, X)
+    return Y
+
+
+def _spmm_octet_cuda(packed: Octet, X: torch.Tensor) -> torch.Tensor:
+    _check_mm(packed, X)
+    if not X.is_cuda:
+        raise ValueError(f"spmm_octet: X must lie on the pack's CUDA device, "
+                         f"not {X.device}")
+    rows, cols = packed.shape
+    Y = torch.zeros((rows, X.shape[1]), dtype=torch.float32, device=X.device)
+    if rows == 0 or cols == 0 or X.shape[1] == 0:
+        return Y
+    X = X.contiguous()
+    section = packed
+    while section is not None:
+        _launch("spmm_octet", section, X, Y)
+        section = section.rem
+    return Y
+
+
+def _octet_mm_forward(packed: Octet, X: torch.Tensor) -> torch.Tensor:
+    if X.device.type == "cpu" and packed.vals.device.type == "cpu":
+        return spmm_octet_reference(packed, X)
+    return _spmm_octet_cuda(packed, X)
+
+
+def _section_grads_mm(packed: Octet, X, G, want_x, want_vals):
+    """(gX, dvals) of one section (the JAX ``_oct_mm_bwd``): the scatter
+    ``A^T G`` and the masked value cotangent ``sum_j X[col, j] G[row, j]``."""
+    rows, cols = packed.shape
+    k = X.shape[1]
+    row, col = _slot_row_col(packed)
+    Gpad = torch.cat([G.float(), G.new_zeros((1, k), dtype=torch.float32)])
+    Grow = Gpad[row.clamp(max=rows)]  # padding cells (vals 0) → the sink
+    vals4 = packed.vals.reshape(row.shape)
+    gX = dvals = None
+    if want_x:
+        gX = torch.zeros((packed.n_win * _W, k), dtype=torch.float32,
+                         device=G.device)
+        gX.index_add_(0, col.reshape(-1),
+                      (Grow * vals4.float()[..., None]).reshape(-1, k))
+        gX = gX[:cols]
+    if want_vals:
+        Xpad = torch.zeros((packed.n_win * _W, k), dtype=torch.float32,
+                           device=X.device)
+        Xpad[:cols] = X
+        zero = torch.zeros((), dtype=torch.float32, device=X.device)
+        dvals = torch.where(vals4 != 0, (Xpad[col] * Grow).sum(dim=-1), zero)
+        dvals = dvals.to(packed.vals.dtype).reshape(packed.vals.shape)
+    return gX, dvals
+
+
+class _SpmmOctet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, vals, rem_vals, X):
+        # ``vals`` and ``rem_vals`` are the sections' values, passed so
+        # autograd tracks them
+        ctx.packed = packed
+        ctx.save_for_backward(X)
+        return _octet_mm_forward(packed, X)
+
+    @staticmethod
+    def backward(ctx, G):
+        packed = ctx.packed
+        (X,) = ctx.saved_tensors
+        want_x = ctx.needs_input_grad[3]
+        gX, dvals = _section_grads_mm(packed, X, G, want_x,
+                                      ctx.needs_input_grad[1])
+        drem = None
+        if packed.rem is not None:
+            gX_rem, drem = _section_grads_mm(packed.rem, X, G, want_x,
+                                             ctx.needs_input_grad[2])
+            if want_x:
+                gX = gX + gX_rem
+        return None, dvals, drem, (gX.to(X.dtype) if want_x else None)
+
+
 def spmm_octet(packed: Octet, X: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(f"spmm_octet: {SPMM_OCTET_TODO}")
+    """``Y = A @ X`` over an octet pack (fp32 result); X is (cols, k) fp32.
+    Differentiable in X and in the values of both sections."""
+    rem_vals = packed.rem.vals if packed.rem is not None else None
+    return _SpmmOctet.apply(packed, packed.vals, rem_vals, X)

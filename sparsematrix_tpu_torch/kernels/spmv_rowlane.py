@@ -18,7 +18,9 @@ plane comes out ``np.array_equal`` to it: the native packer
 (``native/rowlane.cc``, built by ``g++`` at first use) or, where no
 compiler is found, the numpy one.  ``spill_depth`` sends the entries past
 ``L * spill_depth`` in their bucket to a second rowlane pack (the
-``spill_packed`` tail), which runs on the same kernel.
+``spill_packed`` tail), which runs on the same kernel; a legacy container
+whose tail is a masked-slab ``SellSpmv`` runs it through ``spmv_sell``
+(``csrc/spmv_sell.cu``), as the JAX package does.
 
 ``spmv_sell_rowlane(packed, x)`` runs ``spmv_sell_rowlane_reference``
 when all its inputs lie on the CPU, and otherwise launches the kernel or
@@ -40,15 +42,13 @@ import torch
 from ..formats.base import sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
+from .spmv_sell import SellSpmv, _spmv_sell_cuda, spmv_sell_reference
 
 __all__ = ["SellRowLane", "pack_sell_rowlane", "spmv_sell_rowlane",
            "spmv_sell_rowlane_reference"]
 
 _W = 1024
 _LANES = 128
-
-_SELL_TODO = ("a masked-slab SELL spill tail (kernel row 5, spmv_sell) is "
-              "not ported yet (ROADMAP.md, Queue 2 item 11)")
 
 
 @sparse_container
@@ -60,7 +60,8 @@ class SellRowLane:
     slab_win: torch.Tensor  # (n_groups, group) int32
     tile_nonempty: torch.Tensor  # (n_tiles,) bool
     spill: Optional[CSR]  # tail entries beyond spill_depth (or None)
-    spill_packed: Optional[object]  # rowlane pack of the tail
+    spill_packed: Optional[object]  # rowlane pack (or legacy SellSpmv) of
+    #                                 the tail
     t_pack: Optional["SellRowLane"]  # packed A^T for the backward pass
     shape: Tuple[int, int] = static_field()
     n_tiles: int = static_field()
@@ -384,8 +385,9 @@ def _check_pack(packed: SellRowLane, fn: str) -> None:
         raise ValueError(f"{fn}: values must be fp32 or bf16, not "
                          f"{packed.vals.dtype}")
     if packed.spill_packed is not None and not isinstance(
-            packed.spill_packed, SellRowLane):
-        raise NotImplementedError(f"{fn}: {_SELL_TODO}")
+            packed.spill_packed, (SellRowLane, SellSpmv)):
+        raise TypeError(f"{fn}: a spill tail must be a SellRowLane or a "
+                        f"SellSpmv, not {type(packed.spill_packed).__name__}")
 
 
 def _check_x(x: torch.Tensor, cols: int, fn: str) -> None:
@@ -468,7 +470,11 @@ def _rowlane_apply(packed: SellRowLane, x: torch.Tensor,
     _check_pack(packed, "spmv_sell_rowlane")
     _check_x(x, packed.shape[1], "spmv_sell_rowlane")
     y = (_body_plain if plain else _body_cuda)(packed, x)
-    if packed.spill_packed is not None:
+    if isinstance(packed.spill_packed, SellSpmv):
+        # legacy containers packed with the masked-slab kernel
+        y = y + (spmv_sell_reference if plain else _spmv_sell_cuda)(
+            packed.spill_packed, x)
+    elif packed.spill_packed is not None:
         y = y + _rowlane_apply(packed.spill_packed, x, plain)
     elif packed.spill is not None:
         from ..ops.spmv import spmv_reference

@@ -11,10 +11,12 @@ Low-density CSR takes the JAX package's multi-RHS routes: band-local
 matrices the strip layout, power-law matrices the skew hybrid
 (``ops/skew.py``), ≤16 entries a row the sliced-ELL row gather, the rest
 the dual-gather walk (``kernels/spmm_dualgather.py``), each pack built
-once per container and cached.  Packed layouts (a ``DualGather`` or a
-``SkewSpmv`` from ``prepare_spmv``, a ``SlicedEllMM``) serve ``spmm``
-directly; an ``Octet`` pack raises (its multi-RHS kernel, row 16, is not
-ported yet).
+once per container and cached.  Packed layouts serve ``spmm``
+directly: a ``DualGather`` (a superblock pack with its pooled spill tail
+too), an ``Octet`` (``kernels/spmv_octet.py``'s ``spmm_octet``, ``rem``
+included) or a ``SkewSpmv`` from ``prepare_spmv``, and a ``SlicedEllMM``.
+The SpMV-only layouts (rowlane, the rowlane superblock, SELL) raise
+``TypeError``, as in the JAX package.
 
 One routing differs on purpose: a ``CodebookDense`` goes to the
 hand-written fused dequantize + product kernel (``kernels/codebook.py``),
@@ -37,6 +39,7 @@ from ..kernels.spmm_dualgather import spmm_dualgather
 from ..kernels.spmv_dualgather import DualGather, pack_dualgather
 from ..kernels.spmv_octet import Octet, spmm_octet
 from ..kernels.spmv_rowlane import SellRowLane
+from ..kernels.spmv_sell import SellRowPure, SellSpmv
 from ..kernels.spmv_superblock import SellSuperblock
 from .skew import SkewSpmv, is_skewed, pack_skew, spmm_skew
 from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
@@ -213,7 +216,7 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
         return spmm_octet(A, X)
     if isinstance(A, SlicedEllMM):
         return spmm_sliced_ell(A, X)
-    if isinstance(A, (SellRowLane, SellSuperblock)):
+    if isinstance(A, (SellRowLane, SellSuperblock, SellRowPure, SellSpmv)):
         # as in the JAX package, these layouts serve SpMV only
         raise TypeError(f"spmm: unsupported format {type(A).__name__}")
     if type(A) not in _PLAIN_IMPLS:

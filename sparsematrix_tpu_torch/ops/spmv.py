@@ -9,11 +9,12 @@ product runs its kernel wrapper, which decides by the tensor's device (a
 CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises).  So the CPU tests walk the same routes as the card.
 
-The layouts: dual-gather (the default), strip (band-local), octet (≲2
-entries a row), the rowlane superblock (scattered patterns), rowlane, and
-the skew hybrid (power-law matrices).  Only the pooled dual-gather spill
-tail (``spill_cap``) raises ``NotImplementedError``, naming its ROADMAP
-item.
+The layouts: dual-gather (the default; ``spill_cap`` adds its pooled
+spill tail), strip (band-local), octet (≲2 entries a row), the rowlane
+superblock (scattered patterns), rowlane, and the skew hybrid (power-law
+matrices).  ``spmv`` also takes the SELL packs ``pack_sell`` and
+``pack_sell_rowpure`` build (``kernels/spmv_sell.py``), which no auto
+route picks, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ from ..kernels.spmv_dualgather import (DualGather, pack_dualgather,
 from ..kernels.spmv_octet import Octet, pack_octet, spmv_octet
 from ..kernels.spmv_rowlane import (SellRowLane, pack_sell_rowlane,
                                     spmv_sell_rowlane)
+from ..kernels.spmv_sell import (SellRowPure, SellSpmv, spmv_sell,
+                                 spmv_sell_rowpure)
 from ..kernels.spmv_superblock import (SellSuperblock, pack_superblock,
                                        spmv_superblock)
 from .skew import SkewSpmv, is_skewed, pack_skew, spmv_skew
@@ -229,6 +232,10 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         return spmv_sell_rowlane(A, x)
     if isinstance(A, SellSuperblock):
         return spmv_superblock(A, x)
+    if isinstance(A, SellRowPure):
+        return spmv_sell_rowpure(A, x)
+    if isinstance(A, SellSpmv):
+        return spmv_sell(A, x)
     if x.ndim != 1 or x.shape[0] != A.shape[1]:
         raise ValueError(
             f"spmv: x shape {tuple(x.shape)} incompatible with matrix {A.shape}")

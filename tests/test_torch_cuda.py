@@ -742,3 +742,235 @@ def test_solvers_on_card_match_cpu(dev):
         assert abs(it_g - it_c) <= 2
         torch.testing.assert_close(x_g, x_c, rtol=1e-3,
                                    atol=1e-3 * float(x_c.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# slice 5: octet SpMM, the pooled spill tail, the SELL kernels (rows 16,
+# 12, 5 and 6 of PERF.md's table), and the direct and BiCGSTAB solvers on
+# the card
+
+def _oracle_ok(got, sp, rhs, bf16):
+    sp64 = sp.astype(np.float64)
+    if bf16:
+        sp64.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    return relative_check(got.double().cpu().numpy(),
+                          sp64 @ rhs.double().cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("case", OCT_CARD, ids=_dg_id)
+def test_octet_spmm_kernel(dev, case, k):
+    from sparsematrix_tpu_torch.kernels import (spmm_octet,
+                                                spmm_octet_reference)
+
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + 5 * shape[1] + k)
+    sp = _sparse(rng, shape, density)
+    A = pack_octet(CSR.from_scipy(sp, device=dev), **kw)
+    X = torch.from_numpy(rng.standard_normal((shape[1], k)).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts["spmm_octet"]
+    got = spmm_octet(A, X)
+    assert _build.launch_counts["spmm_octet"] == before + (
+        2 if A.rem is not None else 1)
+    assert_kernel_close(got, spmm_octet_reference(A, X))
+    assert _oracle_ok(got, sp, X, kw.get("dtype") is torch.bfloat16)
+    assert_kernel_close(spmm(A, X), got)  # the pack dispatch
+
+
+# a deep tail (cap 16 at ~246 entries a row), the "auto" cap on
+# superblocks, bf16 values, a ragged last tile and window
+POOLED_CARD = [
+    ((512, 4096), 0.06, dict(spill_cap=16)),
+    ((700, 3000), 0.05, dict(spill_cap="auto", k_tiles=4)),
+    ((256, 2048), 0.08, dict(spill_cap=8, k_tiles=2, group=4,
+                             dtype=torch.bfloat16)),
+    ((1100, 2100), 0.02, dict(spill_cap=8, group=4)),
+]
+
+
+@pytest.mark.parametrize("case", POOLED_CARD, ids=_dg_id)
+def test_pooled_tail_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + 11 * shape[1])
+    sp = _sparse(rng, shape, density)
+    A = pack_dualgather(CSR.from_scipy(sp, device=dev), **kw)
+    assert A.tail is not None
+    bf16 = kw.get("dtype") is torch.bfloat16
+    x = torch.from_numpy(rng.standard_normal(shape[1]).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts["spmv_pooled"]
+    got = spmv_dualgather(A, x)
+    assert _build.launch_counts["spmv_pooled"] == before + 1
+    assert_kernel_close(got, spmv_dualgather_reference(A, x))
+    assert _oracle_ok(got, sp, x, bf16)
+    if A.k_tiles > 1:  # the multi-RHS walk: the tail in one launch
+        for k in (1, 33):
+            X = torch.from_numpy(rng.standard_normal((shape[1], k)).astype(
+                np.float32)).to(dev)
+            before = _build.launch_counts["spmv_pooled"]
+            Y = spmm_dualgather(A, X)
+            assert _build.launch_counts["spmv_pooled"] == before + 1
+            assert_kernel_close(Y, spmm_dualgather_reference(A, X))
+            assert _oracle_ok(Y, sp, X, bf16)
+
+
+# ragged tiles and windows, every tr up to 128, a rectangular matrix
+SELL_CARD = [((1100, 900), 0.02, 32), ((300, 1500), 0.05, 8),
+             ((1000, 3000), 0.01, 64), ((130, 2100), 0.1, 128)]
+
+
+@pytest.mark.parametrize("case", SELL_CARD, ids=lambda c: f"{c[0]}-tr{c[2]}")
+def test_sell_kernel(dev, case):
+    from sparsematrix_tpu_torch.kernels import (pack_sell, spmv_sell,
+                                                spmv_sell_reference)
+
+    shape, density, tr = case
+    rng = np.random.default_rng(shape[0] + 13 * shape[1])
+    _spmv_case(dev, _sparse(rng, shape, density), pack_sell, spmv_sell,
+               spmv_sell_reference, "spmv_sell", tr=tr)
+
+
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
+def test_sell_rowpure_kernel(dev, R):
+    from sparsematrix_tpu_torch.kernels import (pack_sell_rowpure,
+                                                spmv_sell_rowpure,
+                                                spmv_sell_rowpure_reference)
+
+    rng = np.random.default_rng(30 + R)
+    _spmv_case(dev, _sparse(rng, (1100, 2100), 0.03), pack_sell_rowpure,
+               spmv_sell_rowpure, spmv_sell_rowpure_reference,
+               "spmv_sell_rowpure", group=3, rows_per_sublane=R)
+
+
+def test_rowlane_legacy_sell_tail_kernel(dev):
+    """A rowlane pack whose spill tail is a masked-slab ``SellSpmv``: the
+    body on the rowlane kernel, the tail on the SELL kernel."""
+    from sparsematrix_tpu_torch.kernels import pack_sell
+
+    rng = np.random.default_rng(23)
+    d = gen_random_dense_sparse(rng, 600, 1700, density=0.01)
+    d[[3, 200, 599], :] = rng.uniform(-1000, 1000, (3, 1700))
+    import scipy.sparse as sps
+
+    A = pack_sell_rowlane(CSR.fromdense(d, device=dev), spill_depth=1)
+    A = dataclasses.replace(A, spill_packed=pack_sell(A.spill, tr=32))
+    x = torch.from_numpy(rng.standard_normal(1700).astype(np.float32)).to(dev)
+    before = (_build.launch_counts["spmv_rowlane"],
+              _build.launch_counts["spmv_sell"])
+    got = spmv_sell_rowlane(A, x)
+    assert (_build.launch_counts["spmv_rowlane"],
+            _build.launch_counts["spmv_sell"]) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert_kernel_close(got, spmv_sell_rowlane_reference(A, x))
+    assert _oracle_ok(got, sps.csr_matrix(d), x, False)
+
+
+def test_slice5_gradients_on_card_match_cpu(dev):
+    """The VJPs of spmm_octet (X and both sections' values), of a pack
+    with a pooled tail (x and the tail's values) and of the row-pure SELL
+    (x and values) give the same gradients on the card as on the CPU."""
+    from sparsematrix_tpu_torch.kernels import (pack_sell_rowpure,
+                                                spmm_octet,
+                                                spmv_sell_rowpure)
+
+    rng = np.random.default_rng(24)
+    sp_o = _sparse(rng, (3000, 5000), 0.0005)
+    sp_d = _sparse(rng, (256, 2048), 0.08)
+    Xo = rng.standard_normal((5000, 4)).astype(np.float32)
+    xd = rng.standard_normal(2048).astype(np.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        out = []
+        O = pack_octet(CSR.from_scipy(sp_o, device=d), group=32,
+                       k_octets=4, trim_group=8)
+        v, rv = (O.vals.clone().requires_grad_(),
+                 O.rem.vals.clone().requires_grad_())
+        X = torch.from_numpy(Xo).to(d).requires_grad_()
+        spmm_octet(dataclasses.replace(
+            O, vals=v, rem=dataclasses.replace(O.rem, vals=rv)), X).sum(
+        ).backward()
+        out += [X.grad.cpu(), v.grad.cpu(), rv.grad.cpu()]
+        D = pack_dualgather(CSR.from_scipy(sp_d, device=d), spill_cap=8,
+                            k_tiles=2, group=4)
+        tv = D.tail.vals.clone().requires_grad_()
+        x = torch.from_numpy(xd).to(d).requires_grad_()
+        spmv_dualgather(dataclasses.replace(
+            D, tail=dataclasses.replace(D.tail, vals=tv)), x).sum().backward()
+        out += [x.grad.cpu(), tv.grad.cpu()]
+        R = pack_sell_rowpure(CSR.from_scipy(sp_d, device=d), group=2,
+                              rows_per_sublane=4)
+        rvals = R.vals.clone().requires_grad_()
+        x2 = torch.from_numpy(xd).to(d).requires_grad_()
+        spmv_sell_rowpure(dataclasses.replace(R, vals=rvals), x2).sum(
+        ).backward()
+        out += [x2.grad.cpu(), rvals.grad.cpu()]
+        grads[str(d)] = out
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def _convection(side):
+    """The unsymmetric convection system of ``test_torch_solvers.py``."""
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    n, sp = poisson2d(side * side)
+    sp = sp + 0.5 * sps.kron(sps.eye(side), sps.diags(
+        [-1.0, 1.0], [-1, 1], (side, side)))
+    return sp.tocsr().astype(np.float32)
+
+
+@pytest.mark.parametrize("panel", [False, True])
+@pytest.mark.parametrize("engine", ["waves", "fused"])
+def test_splu_solve_on_card(dev, engine, panel):
+    """``splu_solve`` with each engine, a vector and a panel ``b``: the
+    card's solution equals the CPU's (its plain solves; 1e-4 of the
+    scale) and fp64 ``numpy.linalg.solve`` (``relative_check``), through
+    the engine's kernels."""
+    from sparsematrix_tpu_torch import splu_plans, splu_solve
+
+    sp = _convection(32)
+    rng = np.random.default_rng(25)
+    b = rng.standard_normal((1024, 9) if panel else 1024).astype(np.float32)
+    xs = {}
+    for d in ("cpu", dev):
+        solver = splu_plans(CSR.from_scipy(sp, device=d), engine=engine)
+        _build.launch_counts.clear()
+        xs[str(d)] = splu_solve(solver, torch.from_numpy(b).to(d))
+        counts = dict(_build.launch_counts)
+    names = (("trisolve_fused",) if engine == "fused" else
+             ("trisolve_chain_mm", "trisolve_binv") if panel else
+             ("trisolve_chain", "trisolve_binv"))
+    assert any(counts.get(kn, 0) > 0 for kn in names), counts
+    assert_solve_close(xs["cuda"], xs["cpu"].to(dev))
+    want = np.linalg.solve(sp.toarray().astype(np.float64), b)
+    assert relative_check(xs["cuda"].double().cpu().numpy(), want)
+
+
+def test_bicgstab_on_card(dev):
+    """``bicgstab`` with ILU(0) wave plans on the convection system: the
+    card reaches tol in the CPU's iterations (±2), with a true fp64
+    residual within 10·tol·‖b‖."""
+    from sparsematrix_tpu_torch import (bicgstab, ilu0_waves_plans,
+                                        ilu_apply, prepare_spmv)
+
+    sp = _convection(32)
+    b = np.random.default_rng(8).standard_normal(1024).astype(np.float32)
+    res = {}
+    for d in ("cpu", dev):
+        A = CSR.from_scipy(sp, device=d)
+        plans = ilu0_waves_plans(A)
+        _build.launch_counts.clear()
+        r = bicgstab(prepare_spmv(A), torch.from_numpy(b).to(d), tol=1e-5,
+                     maxiter=2000, M=lambda v, plans=plans: ilu_apply(plans,
+                                                                       v))
+        res[str(d)] = (r, dict(_build.launch_counts))
+    (rg, cg_counts), (rc, _) = res["cuda"], res["cpu"]
+    assert cg_counts.get("trisolve_chain", 0) > 0
+    assert abs(int(rg.iters) - int(rc.iters)) <= 2
+    x = rg.x.double().cpu().numpy()
+    assert (np.linalg.norm(sp.astype(np.float64) @ x - b)
+            <= 10 * 1e-5 * np.linalg.norm(b))

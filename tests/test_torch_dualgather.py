@@ -140,8 +140,10 @@ def test_pack_empty_and_bad_arguments():
         tdg.pack_dualgather(A, two_win=True)  # k_tiles=1
     with pytest.raises(ValueError):
         tdg.pack_dualgather(A, k_tiles=2, two_win=True, spill_cap=8)
-    with pytest.raises(NotImplementedError, match="row 12"):
-        tdg.pack_dualgather(A, spill_cap=8)
+    # a spill cap above every row-window degree packs no tail
+    port, ref = packs(np.eye(128, dtype=np.float32), spill_cap=8)
+    assert port.tail is None
+    assert_planes_equal(port, ref)
 
 
 PRODUCT_CASES = [

@@ -95,6 +95,19 @@ def test_cpu_calls_launch_no_kernel():
     smt.spgemm_apply_packed_csc(pp, B.data)
     for layout in ("superblock", "rowlane"):
         smt.spmv(smt.prepare_spmv(A, layout=layout), torch.ones(2048))
+    # slice 5: spmm over an octet pack, the pooled spill tail in spmv and
+    # spmm, the two SELL layouts
+    O = smt.CSR.fromdense(gen_random_dense_sparse(rng, 2048, 2048, 0.0005),
+                          device="cpu")
+    smt.spmm(smt.prepare_spmv(O), torch.ones((2048, 3)))
+    D = smt.CSR.fromdense(gen_random_dense_sparse(rng, 256, 1024, 0.05),
+                          device="cpu")
+    Pd = smt.pack_dualgather(D, k_tiles=2, spill_cap=8)
+    assert Pd.tail is not None
+    smt.spmv(Pd, torch.ones(1024))
+    smt.spmm(Pd, torch.ones((1024, 3)))
+    smt.spmv(smt.pack_sell(D, tr=16), torch.ones(1024))
+    smt.spmv(smt.pack_sell_rowpure(D, rows_per_sublane=2), torch.ones(1024))
     # slice 4: every triangular-solve engine under the solvers (one BLAS
     # thread: the wave planner's many small inversions crawl when every
     # worker of a parallel run keeps a thread a core)
@@ -130,4 +143,7 @@ def test_package_data_lists_every_native_source():
     assert [s for s in sources
             if not any(fnmatch.fnmatch(s, g) for g in globs)] == []
     assert set(_build.SOURCES) == {p.stem for p in PKG.glob("csrc/*.cu")}
+    assert {"spmm_octet", "spmv_pooled", "spmv_sell"} <= set(_build.SOURCES)
+    assert {"spmm_octet", "spmv_pooled", "spmv_sell",
+            "spmv_sell_rowpure"} <= set(_build.KERNELS)
     assert set(_build.HOST_SOURCES) == {p.stem for p in PKG.glob("native/*.cc")}

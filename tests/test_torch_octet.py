@@ -172,11 +172,131 @@ def test_prepare_spmv_auto_clustered_octet():
 
 
 def test_octet_empty_and_spmm_raises():
+    """An empty pack: zero products through both wrappers; ``spmm_octet``
+    raises on an X whose rows are not the matrix's columns."""
     A = smt.CSR.fromdense(np.zeros((64, 64), np.float32), device=CPU)
     packed = toc.pack_octet(A)
     assert_same_container(
         packed, joc.pack_octet(jf.CSR.fromdense(np.zeros((64, 64),
                                                          np.float32))))
     assert (toc.spmv_octet(packed, torch.ones(64)) == 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toc.spmm_octet(packed, torch.ones((64, 2)))
+    Y = toc.spmm_octet(packed, torch.ones((64, 2)))
+    assert Y.shape == (64, 2) and (Y == 0).all()
+    with pytest.raises(ValueError, match="X must be fp32"):
+        toc.spmm_octet(packed, torch.ones((63, 2)))
+
+
+def _spmm_fixture(shape, density, seed, **kw):
+    """The JAX tests' SpMM fixture: ``sps.random`` pattern, values in
+    ±10 (``tests/test_octet.py:181-198``)."""
+    sp = sps.random(*shape, density=density, random_state=seed,
+                    format="csr", dtype=np.float32)
+    sp.data = np.random.default_rng(seed).uniform(
+        -10, 10, sp.nnz).astype(np.float32)
+    A, JA = smt.CSR.from_scipy(sp, device=CPU), jf.CSR.from_scipy(sp)
+    return toc.pack_octet(A, **kw), joc.pack_octet(JA, **_jax_kw(kw)), sp
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 13, 40])
+def test_spmm_octet_matches_jax(k):
+    """test_spmm_octet at each k (and k = 1 and k > 32): through the
+    kernel wrapper and the ``spmm`` pack dispatch, against the JAX
+    ``spmm_octet`` and fp64 (rtol 2e-3, atol 0.5)."""
+    packed, jpacked, sp = _spmm_fixture((2048, 2048), 0.002, 1, k_octets=2)
+    X = np.random.default_rng(k).uniform(-1, 1, (2048, k)).astype(np.float32)
+    want = np.asarray(joc.spmm_octet(jpacked, jnp.asarray(X)))
+    for fn in (toc.spmm_octet, smt.spmm, toc.spmm_octet_reference):
+        got = fn(packed, torch.from_numpy(X))
+        assert got.dtype == torch.float32 and got.shape == (2048, k)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), sp.astype(np.float64) @ X,
+                                   **TOL)
+
+
+def test_spmm_octet_trim_rem_and_vjp_match_jax():
+    """The trim pack of the 3000×5000, density-0.0005 fixture has a
+    ``rem`` section: the product against the JAX ``spmm_octet`` and fp64,
+    the X cotangent against fp64 ``A^T G`` and JAX, and the value
+    cotangents of both sections against JAX's (rtol 2e-3, atol 0.5; the
+    value cotangents to atol 1e-4)."""
+    shape, density, kw = CASES["trim"]
+    A, JA, sp = both(shape, density)
+    packed = toc.pack_octet(A, **kw)
+    jpacked = joc.pack_octet(JA, **kw)
+    assert packed.rem is not None
+    rng = np.random.default_rng(12)
+    X = rng.uniform(-1, 1, (shape[1], 4)).astype(np.float32)
+    G = rng.uniform(-1, 1, (shape[0], 4)).astype(np.float32)
+
+    def fwd(vals, rem_vals, xx):
+        return joc.spmm_octet(dataclasses.replace(
+            jpacked, vals=vals,
+            rem=dataclasses.replace(jpacked.rem, vals=rem_vals)), xx)
+
+    jy, jvjp = jax.vjp(fwd, jpacked.vals, jpacked.rem.vals, jnp.asarray(X))
+    jdv, jdr, jgX = (np.asarray(a) for a in jvjp(jnp.asarray(G)))
+    v = packed.vals.clone().requires_grad_()
+    rv = packed.rem.vals.clone().requires_grad_()
+    Xt = torch.from_numpy(X).requires_grad_()
+    pk = dataclasses.replace(packed, vals=v,
+                             rem=dataclasses.replace(packed.rem, vals=rv))
+    Y = smt.spmm(pk, Xt)
+    Y.backward(torch.from_numpy(G))
+    sp64 = sp.astype(np.float64)
+    np.testing.assert_allclose(Y.detach().numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(Y.detach().numpy(), sp64 @ X, **TOL)
+    np.testing.assert_allclose(Xt.grad.numpy(), sp64.T @ G, **TOL)
+    np.testing.assert_allclose(Xt.grad.numpy(), jgX, **TOL)
+    np.testing.assert_allclose(v.grad.numpy(), jdv, rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(rv.grad.numpy(), jdr, rtol=2e-3, atol=1e-4)
+    assert np.abs(rv.grad.numpy()).max() > 0
+
+
+def test_spmm_octet_bf16_vjp_matches_jax():
+    """test_spmm_octet_vjp on bf16 values: X and value cotangents against
+    ``jax.vjp`` (rtol 2e-3, atol 0.5), X's against fp64 of the rounded
+    values too."""
+    packed, jpacked, sp = _spmm_fixture((1500, 1200), 0.002, 9, k_octets=2,
+                                        dtype=torch.bfloat16)
+    rng = np.random.default_rng(13)
+    X = rng.uniform(-1, 1, (1200, 6)).astype(np.float32)
+    W = rng.uniform(-1, 1, (1500, 6)).astype(np.float32)
+    _, jvjp = jax.vjp(lambda vv, xx: joc.spmm_octet(
+        dataclasses.replace(jpacked, vals=vv), xx), jpacked.vals,
+        jnp.asarray(X))
+    jdv, jgX = jvjp(jnp.asarray(W))
+    v = packed.vals.clone().requires_grad_()
+    Xt = torch.from_numpy(X).requires_grad_()
+    toc.spmm_octet(dataclasses.replace(packed, vals=v), Xt).backward(
+        torch.from_numpy(W))
+    sp64 = sp.astype(np.float64)
+    sp64.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    np.testing.assert_allclose(Xt.grad.numpy(), np.asarray(jgX), **TOL)
+    np.testing.assert_allclose(Xt.grad.numpy(), sp64.T @ W, **TOL)
+    assert v.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(v.grad.float().numpy(),
+                               np.asarray(jdv.astype(jnp.float32)), **TOL)
+    assert (v.grad.float().numpy()[packed.vals.float().numpy() == 0]
+            == 0).all()
+
+
+def test_spmm_prepare_spmv_octet_auto_matches_jax():
+    """``spmm(prepare_spmv(A), X)`` on a CSR of ≤ 2 entries a row at
+    2048 rows: the auto route packs an octet, and its product equals the
+    JAX one and fp64."""
+    g = np.random.default_rng(14)
+    n = 2048
+    rows_ = np.repeat(np.arange(n), 2)
+    cols_ = g.integers(0, n, rows_.size)
+    sp = sps.coo_matrix((g.uniform(-1000, 1000, rows_.size).astype(
+        np.float32), (rows_, cols_)), shape=(n, n)).tocsr()
+    sp.sum_duplicates()
+    A, JA = smt.CSR.from_scipy(sp, device=CPU), jf.CSR.from_scipy(sp)
+    P, JP = smt.prepare_spmv(A), jax_prepare_spmv(JA)
+    assert isinstance(P, smt.Octet)
+    assert_same_container(P, JP)
+    X = g.standard_normal((n, 32)).astype(np.float32)
+    got = smt.spmm(P, torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(got, np.asarray(joc.spmm_octet(
+        JP, jnp.asarray(X))), **TOL)
+    np.testing.assert_allclose(got, sp.astype(np.float64) @ X, **TOL)

@@ -206,8 +206,10 @@ def test_prepare_spmv_rowlane_and_superblock_layouts():
 
 
 def test_rowlane_legacy_spill_raises():
+    """A spill tail that is neither a rowlane nor a legacy SELL pack
+    raises (the SELL one runs: ``test_torch_sell.py``)."""
     A, _, _ = both("ragged")
     P = trl.pack_sell_rowlane(A)
     legacy = dataclasses.replace(P, spill_packed=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="spill tail"):
         trl.spmv_sell_rowlane(legacy, torch.zeros(A.shape[1]))

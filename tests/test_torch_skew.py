@@ -138,3 +138,48 @@ def test_skew_products_and_vjp_match_jax():
         Y.detach().numpy(), np.asarray(jax_spmm_skew(JP, jnp.asarray(X))),
         **TOL)
     np.testing.assert_allclose(Xt.grad.numpy(), sp64.T @ W, **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def octet_base_matrix():
+    """n = 8192, 1-2 scattered entries a row plus 8 hub columns of ~7000
+    entries each (nnz ≥ 65536): the power-law guard fires, and once the
+    hub columns leave, the remainder holds ≲ 2 entries a row, which the
+    base's auto route packs as an octet."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(17)
+    n = 8192
+    r = np.repeat(np.arange(n), g.integers(1, 3, n))
+    c = g.integers(0, n, r.size)
+    hubs = g.choice(n, 8, replace=False)
+    hr = np.concatenate([g.choice(n, 7000, replace=False) for _ in hubs])
+    hc = np.repeat(hubs, 7000)
+    rows_, cols_ = np.concatenate([r, hr]), np.concatenate([c, hc])
+    v = g.uniform(-1000, 1000, rows_.size).astype(np.float32)
+    sp = sps.coo_matrix((v, (rows_, cols_)), shape=(n, n)).tocsr()
+    sp.sum_duplicates()
+    return sp
+
+
+def test_spmm_skew_octet_base_matches_jax(monkeypatch):
+    """``spmm(csr, X)`` on a power-law CSR whose skew base is an
+    ``Octet``: the walk pack equals the JAX one, and the product (the
+    base through ``spmm_octet``) equals the JAX ``spmm`` and fp64."""
+    jax_batched_colorer(monkeypatch)  # as the port calls it
+    sp = octet_base_matrix()
+    A, JA = smt.CSR.from_scipy(sp, device=CPU), jf.CSR.from_scipy(sp)
+    assert sp.nnz >= 65536
+    P = tspmm._dg_pack_of(A)
+    assert isinstance(P, SkewSpmv) and isinstance(P.base, smt.Octet)
+    JP = jspmm._dg_pack_of(JA)
+    assert_same_container(P, JP)
+    X = np.random.default_rng(18).standard_normal((sp.shape[1], 5)).astype(
+        np.float32)
+    Y = smt.spmm(A, torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(Y, sp.astype(np.float64) @ X, **TOL)
+    np.testing.assert_allclose(
+        Y, np.asarray(jspmm.spmm(JA, jnp.asarray(X))), **TOL)
+    # the JAX skew product on its pack: the base through its spmm_octet
+    np.testing.assert_allclose(
+        Y, np.asarray(jax_spmm_skew(JP, jnp.asarray(X))), **TOL)

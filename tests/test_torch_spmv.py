@@ -219,15 +219,21 @@ def test_csr_from_scipy_matches_jax():
 
 
 def test_unported_layouts_raise():
-    """Every layout of ``prepare_spmv`` is ported; what is not yet (the
-    pooled spill tail, row 12, and the octet multi-RHS product, row 16)
-    raises naming its ROADMAP item."""
+    """Every layout of ``prepare_spmv`` is ported, the pooled spill tail
+    and the octet multi-RHS product included: both serve ``spmm`` (against
+    fp64, rtol 2e-3, atol 0.5).  What is not ported raises: an unknown
+    layout, and a format the port does not have, naming its ROADMAP
+    queue."""
     A, _, sp = both("uniform-8-tiles")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smt.prepare_spmv(A, layout="dualgather", spill_cap=4)
-    P = smt.prepare_spmv(A, layout="octet")
-    X = torch.ones((sp.shape[1], 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smt.spmm(P, X)
+    X = np.random.default_rng(21).standard_normal((sp.shape[1], 2)).astype(
+        np.float32)
+    want = sp.astype(np.float64) @ X
+    for P in (smt.prepare_spmv(A, layout="dualgather", k_tiles=2,
+                               spill_cap=4),
+              smt.prepare_spmv(A, layout="octet")):
+        np.testing.assert_allclose(smt.spmm(P, torch.from_numpy(X)).numpy(),
+                                   want, **TOL)
     with pytest.raises(ValueError, match="unknown layout"):
         smt.prepare_spmv(A, layout="sell")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        smt.spmv_reference(sp, torch.ones(sp.shape[1]))

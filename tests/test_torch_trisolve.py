@@ -235,3 +235,51 @@ def test_trisolve_routes_like_jax(monkeypatch, route, multi):
     assert used[-1][1] == {"waves": "trisolve_waves_plan",
                            "fused": "trisolve_fused_plan",
                            "level": "trisolve_plan"}[route]
+
+
+# the JAX tests' factor law (``tests/test_trisolve_waves.py:27-39``):
+# off-diagonals in ±1, a diagonal in [2, 4], not diagonally dominant;
+# engine -> (n, density, band, plan kind, plan arguments)
+JAX_LAW_CASES = {
+    "level": (512, 0.02, None, "level", {}),
+    "fixpoint": (300, 0.02, None, "fixpoint", {}),
+    "fused": (640, 0.02, None, "fused", {}),
+    "chain": (1300, 0.02, 100, "waves", dict(mode="chain")),
+    "binv": (900, 0.01, None, "waves", dict(mode="binv", m=2)),
+}
+
+
+@pytest.mark.parametrize("engine", sorted(JAX_LAW_CASES))
+def test_jax_factor_law_engines(engine):
+    """One solve per engine on the JAX tests' (non-dominant) factor law,
+    drawn by the JAX tests' own generator from ``default_rng(0)``: the
+    plan equal to the JAX plan, the solve held against the JAX apply and
+    fp64 at the JAX tests' tolerance (rtol 2e-3, atol 1e-3)."""
+    from test_trisolve_waves import _rand_lower as jax_law_lower
+
+    jtf = importlib.import_module("sparsematrix_tpu.kernels.trisolve_fused")
+    jtw = importlib.import_module("sparsematrix_tpu.kernels.trisolve_waves")
+    ttf = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.trisolve_fused")
+    ttw = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.trisolve_waves")
+    n, density, band, kind, kw = JAX_LAW_CASES[engine]
+    rng = np.random.default_rng(0)
+    sp = jax_law_lower(rng, n, density, band=band)
+    b = rng.standard_normal(n).astype(np.float32)
+    A, JA = both(sp)
+    port_mod, jax_mod = {"level": (tts, jts), "fixpoint": (tts, jts),
+                         "fused": (ttf, jtf), "waves": (ttw, jtw)}[kind]
+    name = f"trisolve_{kind}"
+    tplan_fn, tapply = (getattr(port_mod, name + "_plan"),
+                        getattr(port_mod, name + "_apply"))
+    jplan_fn, japply = (getattr(jax_mod, name + "_plan"),
+                        getattr(jax_mod, name + "_apply"))
+    plan, jplan = tplan_fn(A, **kw), jplan_fn(JA, **kw)
+    assert_same_container(plan, jplan)
+    if kind == "waves":
+        assert plan.mode == kw["mode"]
+    x = tapply(plan, torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(
+        x, np.asarray(japply(jplan, jnp.asarray(b))), **SOLVE_TOL)
+    np.testing.assert_allclose(x, tri_oracle(sp, b), **SOLVE_TOL)
