@@ -47,7 +47,14 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    1 and 8) at k = 1 and 32, and those packs whole against the XL oracle;
    the octet SpMM at k = 32 on the bench's ``spmm_xl/octet-mm`` matrix
    (n = 32768, 2 a row), the clustered CSR's octet pack and the
-   ``spgemm_xl`` pair program's trim pack (``rem``).
+   ``spgemm_xl`` pair program's trim pack (``rem``).  Then slice 6: the
+   BSR grouped and panel kernels on the JAX bench's ``bsr`` point
+   (n = 2048, (8, 8), block density 0.05, k = 128; also at bf16 and with
+   capacity padding and an empty block-row), the grouped kernel at
+   (4, 4) and at (128, 128) on n = 16384, the panel kernel on the XL BSR
+   (n = 32768, (8, 8), block density 0.0078, k = 128) and at the shape
+   block CG gives it (``block_cg_xl``'s Poisson system as a (8, 8) BSR,
+   k = 8), each BSR built by ``csr_to_bsr`` with its host seconds.
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
    4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
@@ -71,7 +78,14 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    (n = 131072) whose skew base is an octet, ``splu_solve`` (waves at
    n = 65536, fused at n = 16384, a vector and a panel each, against the
    engines' plain solves and fp64 SuperLU) and ``bicgstab`` (plain and
-   ILU(0) waves) on the convection system at n = 65536.  Every launch
+   ILU(0) waves) on the convection system at n = 65536; then slice 6:
+   ``spmm`` on the XL BSR (panel kernel), on the (128, 128) BSR (grouped
+   kernel) and on the bench's BSR with ``method="sparse"`` and
+   ``"auto"`` (the route each took is printed), ``spmv`` on the XL BSR
+   through its CSR (host arrays traced: no dense matrix), ``block_cg``
+   and ``cg`` on ``block_cg_xl``'s Poisson system as a (8, 8) BSR (the
+   CSR operator's iterations ±2), and ``spmm_bsr`` forward and backward
+   against fp64.  Every launch
    counter is set to 0 just before each path and read just after, and
    each kernel must have launched.  ``seconds`` lines give each phase's
    time.
@@ -94,7 +108,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    the yardstick is cuSPARSE SpMV/SpMM of the same CSR (for the pooled
    tail, of the tail's own entries) and, for the octet SpMM, also the
    port's k_tiles=1 dual-gather walk on the same matrix
-   (``kt1_walk_ms``).
+   (``kt1_walk_ms``).  For the BSR kernels the yardstick is torch's BSR
+   product, ``torch.sparse_bsr_tensor @ X`` (or cuSPARSE CSR where that
+   is refused, named in ``library``) and, on the bench's point,
+   cuBLAS of the densified matrix; then the BSR paths end to end and
+   block CG's and CG's iteration on the BSR operator.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -108,13 +126,15 @@ import subprocess
 import sys
 import threading
 import time
+import tracemalloc
 
 import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): non-tensor
-# fp32 FLOP/s and HBM3 bytes/s
+# fp32 FLOP/s, bf16 tensor-core FLOP/s and HBM3 bytes/s
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 ITERS = 30
@@ -183,8 +203,10 @@ def spin_cycles_per_s() -> float:
     return 20_000_000 / (start.elapsed_time(end) * 1e-3)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    """(bound_ms, bound_by): the larger of the operations at ``peak`` (the
+    card's rate for the operands' type) and the bytes at HBM's rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -324,6 +346,82 @@ def convection_system(side: int):
     return n, sp.tocsr().astype(np.float32)
 
 
+def bench_bsr_dense(n: int = 2048, block=(8, 8), density: float = 0.05,
+                    k: int = 128):
+    """The JAX bench's ``bsr`` point (``bench/suite.py:534-547``): dense
+    blocks at ``density`` of the block slots from ``default_rng(3)``,
+    values from ``gen_matrix_random``; then its x and X.  Returns (dense,
+    X)."""
+    from sparsematrix_tpu_torch.utils.testutils import gen_matrix_random
+
+    rng = np.random.default_rng(3)
+    mask = rng.random((n // block[0], n // block[1])) < density
+    dense = (np.kron(mask, np.ones(block)).astype(np.float32)
+             * gen_matrix_random(rng, n, n))
+    gen_matrix_random(rng, n, 1)  # the bench's x
+    return dense, gen_matrix_random(rng, n, k)
+
+
+def block_sparse_scipy(n: int, block, density: float, seed: int):
+    """An n×n matrix of dense (bm × bn) blocks at ``density`` of the block
+    slots, values uniform in ±1000, from ``default_rng(seed)``, built as a
+    scipy CSR without a dense matrix."""
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.utils.testutils import gen_matrix_random
+
+    rng = np.random.default_rng(seed)
+    bm, bn = block
+    mask = rng.random((n // bm, n // bn)) < density
+    bi, bj = np.nonzero(mask)
+    data = gen_matrix_random(rng, bi.size * bm, bn).reshape(-1, bm, bn)
+    indptr = np.concatenate([[0], np.cumsum(mask.sum(axis=1))])
+    return sps.bsr_matrix((data, bj, indptr), shape=(n, n)).tocsr()
+
+
+def bsr_host(A):
+    """(indptr, indices, data) of a BSR's stored blocks on the host; data
+    in fp64."""
+    nb = A.num_blocks
+    return (A.indptr.long().cpu().numpy(), A.indices[:nb].long().cpu().numpy(),
+            A.data[:nb].double().cpu().numpy())
+
+
+def bsr_oracle(A, X64: np.ndarray) -> np.ndarray:
+    """``A @ X`` in fp64 on the host, block by block (batched products
+    summed into the block-rows), 8192 blocks at a time."""
+    indptr, indices, data = bsr_host(A)
+    bm, bn = A.block_shape
+    nbr = A.num_block_rows
+    nbc = -(-A.shape[1] // bn)
+    Xb = np.zeros((nbc * bn, X64.shape[1]))
+    Xb[: X64.shape[0]] = X64
+    Xb = Xb.reshape(nbc, bn, -1)
+    brow = np.repeat(np.arange(nbr), np.diff(indptr))
+    out = np.zeros((nbr, bm, X64.shape[1]))
+    for s in range(0, data.shape[0], 8192):
+        e = min(s + 8192, data.shape[0])
+        r = brow[s:e]  # sorted: sum each block-row's run of products
+        starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
+        out[r[starts]] += np.add.reduceat(
+            np.matmul(data[s:e], Xb[indices[s:e]]), starts, axis=0)
+    return out.reshape(nbr * bm, -1)[: A.shape[0]]
+
+
+def bsr_work(A, k: int, val_bytes: int, x_bytes: int):
+    """(operations, bytes) of ``A @ X`` for a BSR A and X of ``k``
+    columns: 2·bm·bn·k operations a stored block; each stored block and
+    its 4-byte block column once, the X rows a stored block names read
+    once, Y written once.  Panel padding counts against the kernel."""
+    bm, bn = A.block_shape
+    nb = A.num_blocks
+    cols = np.unique(A.indices[:nb].long().cpu().numpy())
+    x_rows = np.minimum(cols * bn + bn, A.shape[1]) - cols * bn
+    return (2.0 * nb * bm * bn * k,
+            nb * (bm * bn * val_bytes + 4.0) + x_bytes * k * float(x_rows.sum())
+            + x_bytes * k * A.shape[0])
+
+
 def container_bytes(obj) -> int:
     """Bytes of every tensor of a pack or plan, nested ones included."""
     if torch.is_tensor(obj):
@@ -461,6 +559,7 @@ def main() -> int:
         "sparsematrix_tpu_torch.kernels.spmv_superblock")
     rlmod = importlib.import_module(
         "sparsematrix_tpu_torch.kernels.spmv_rowlane")
+    tspmm = importlib.import_module("sparsematrix_tpu_torch.ops.spmm")
 
     dev = torch.device("cuda")
     failures = []
@@ -1152,6 +1251,102 @@ def main() -> int:
         failures.append("the spgemm_xl trim pack has no rem section")
     mark("check, slice 5")
 
+    # slice 6: the BSR kernels.  Row 3 (grouped) and row 4 (panel) against
+    # their plain versions on the card (1e-5 of the output scale; bf16: one
+    # bf16 step) and an fp64 host oracle, at the JAX bench's bsr point
+    # (n = 2048, (8, 8), d = 0.05, k = 128), at (4, 4), at (128, 128) on
+    # n = 16384 (10 % of the block slots), on a BSR with capacity padding
+    # and an empty block-row, on the XL BSR (n = 32768, (8, 8), block
+    # density 0.0078, k = 128), at bf16, and row 4 at the shape block CG
+    # gives it on the main path (block_cg_xl's Poisson system as a (8, 8)
+    # BSR, 5 blocks a block-row, k = 8)
+    from sparsematrix_tpu_torch.formats import csr_to_bsr
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    def s6_bsr(label, build):
+        t = time.perf_counter()
+        A = build()
+        torch.cuda.synchronize()
+        emit({"phase": "pack", "pack": label,
+              "seconds": time.perf_counter() - t, "kind": "BSR",
+              "block_shape": list(A.block_shape), "num_blocks": A.num_blocks,
+              "block_capacity": A.block_capacity, "nnz": A.nnz})
+        return A
+
+    dense_bb, Xbb_np = bench_bsr_dense()
+    A_bb = s6_bsr("bsr bench (8,8) csr_to_bsr", lambda: csr_to_bsr(
+        CSR.fromdense(dense_bb, device=dev), (8, 8)))
+    X_bb = torch.from_numpy(Xbb_np).to(dev)
+    dense_b4, Xb4_np = bench_bsr_dense(block=(4, 4))
+    A_b4 = s6_bsr("bsr bench (4,4) csr_to_bsr", lambda: csr_to_bsr(
+        CSR.fromdense(dense_b4, device=dev), (4, 4)))
+    X_b4 = torch.from_numpy(Xb4_np).to(dev)
+    dense_pad = dense_bb.copy()
+    dense_pad[8:16] = 0  # an empty block-row
+    A_pad = s6_bsr("bsr bench (8,8) empty row, capacity +1000",
+                   lambda: csr_to_bsr(CSR.fromdense(dense_pad, device=dev),
+                                      (8, 8), block_capacity=A_bb.num_blocks
+                                      + 1000))
+    A_big = s6_bsr("bsr (128,128) n=16384 d=0.1 csr_to_bsr", lambda: csr_to_bsr(
+        CSR.from_scipy(block_sparse_scipy(16384, (128, 128), 0.1, 30),
+                       device=dev), (128, 128)))
+    X_big = torch.from_numpy(gen_matrix_random(
+        np.random.default_rng(31), 16384, 128)).to(dev)
+    A_xb = s6_bsr("bsr XL (8,8) n=32768 d=0.0078 csr_to_bsr", lambda:
+                  csr_to_bsr(CSR.from_scipy(block_sparse_scipy(
+                      32768, (8, 8), 0.0078, 32), device=dev), (8, 8)))
+    X_xb = torch.from_numpy(gen_matrix_random(
+        np.random.default_rng(33), 32768, 128)).to(dev)
+    P_bb = kb.pack_bsr_panels(A_bb)
+    P_pad = kb.pack_bsr_panels(A_pad)
+    t = time.perf_counter()
+    P_xb = kb.pack_bsr_panels(A_xb)
+    torch.cuda.synchronize()
+    emit({"phase": "pack", "pack": "bsr XL pack_bsr_panels",
+          "seconds": time.perf_counter() - t, "M": P_xb.bcols.shape[1],
+          "panel_fill": A_xb.num_blocks / P_xb.bcols.numel()})
+    A_pob = s6_bsr("block_cg_xl Poisson 256^2 (8,8) csr_to_bsr",
+                   lambda: csr_to_bsr(A_po, (8, 8)))
+    # block_cg_xl's right-hand sides (the main path's B_bc)
+    X_pob = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n_po, 8)).astype(np.float32)).to(dev)
+    P_pob = kb.pack_bsr_panels(A_pob)
+    A_bb16 = A_bb.astype(torch.bfloat16)
+    X_bb16 = X_bb.to(torch.bfloat16)
+    P_bb16 = kb.pack_bsr_panels(A_bb16)
+    s6_cases = {"spmm_bsr": [], "spmm_bsr_panel": []}
+    for kname, case, A_c, P_c, X_c in [
+            ("spmm_bsr", "bench (8,8) k=128", A_bb, None, X_bb),
+            ("spmm_bsr", "bench (4,4) k=128", A_b4, None, X_b4),
+            ("spmm_bsr", "(128,128) n=16384 k=128", A_big, None, X_big),
+            ("spmm_bsr", "bench (8,8) empty row, capacity +1000", A_pad,
+             None, X_bb),
+            ("spmm_bsr", "bench (8,8) bf16 k=128", A_bb16, None, X_bb16),
+            ("spmm_bsr_panel", "bench (8,8) k=128", A_bb, P_bb, X_bb),
+            ("spmm_bsr_panel", "bench (8,8) empty row, capacity +1000",
+             A_pad, P_pad, X_bb),
+            ("spmm_bsr_panel", "XL (8,8) k=128", A_xb, P_xb, X_xb),
+            ("spmm_bsr_panel", "bench (8,8) bf16 k=128", A_bb16, P_bb16,
+             X_bb16),
+            ("spmm_bsr_panel", "block_cg_xl Poisson (8,8) k=8", A_pob, P_pob,
+             X_pob)]:
+        if P_c is None:
+            kern = (lambda A_c=A_c, X_c=X_c: kb._spmm_bsr_cuda(A_c, X_c))
+            plain = (lambda A_c=A_c, X_c=X_c:
+                     kb.spmm_bsr_grouped_reference(A_c, X_c))
+        else:
+            kern = (lambda P_c=P_c, X_c=X_c: kb._spmm_bsr_panel_cuda(P_c, X_c))
+            plain = (lambda P_c=P_c, X_c=X_c:
+                     kb.spmm_bsr_panel_reference(P_c, X_c))
+        got, want_plain = kern(), plain()
+        torch.cuda.synchronize()
+        oracle_b = bsr_oracle(A_c, X_c.double().cpu().numpy())
+        errs[(kname, case)] = check(kname, case, got, want_plain, oracle_b,
+                                    X_c.dtype == torch.bfloat16)
+        s6_cases[kname].append((case, kern, plain, A_c, X_c))
+        del got, want_plain, oracle_b
+    mark("check, slice 6")
+
     # -- 4. main path -------------------------------------------------------
     oracle = (c_np.astype(np.float64)
               + a_np.astype(np.float64) @ bt_dense.T.astype(np.float64))
@@ -1597,6 +1792,139 @@ def main() -> int:
         if not ok:
             failures.append(f"main path bicgstab {label}")
         del res
+
+    # slice 6: BSR through the public API.  spmm on the XL BSR (the panel
+    # kernel) and the (128, 128) BSR (the grouped kernel); spmm on the
+    # bench's bsr point with method "sparse" and "auto" (the route each
+    # took, by the counters: auto densifies where _should_densify says);
+    # spmv on the XL BSR through its CSR (rows 10/11; the conversion must
+    # not densify: its host arrays, traced, stay under half the dense fp32
+    # matrix); block_cg and cg at block_cg_xl's Poisson system
+    # with the operator as csr_to_bsr(A, (8, 8)), held to the bench's
+    # checks and to the CSR operator's iterations (±2); spmm_bsr forward
+    # and backward against fp64
+    bsr_paths = [
+        ("spmm XL BSR (8,8) k=128", lambda: spmm(A_xb, X_xb), A_xb, X_xb,
+         ("spmm_bsr_panel",)),
+        ("spmm BSR (128,128) n=16384 k=128", lambda: spmm(A_big, X_big),
+         A_big, X_big, ("spmm_bsr",)),
+        ("spmm bench BSR (8,8) method=sparse", lambda: spmm(
+            A_bb, X_bb, method="sparse"), A_bb, X_bb, ("spmm_bsr_panel",)),
+        ("spmm bench BSR (8,8) method=auto", lambda: spmm(A_bb, X_bb),
+         A_bb, X_bb, ()),
+    ]
+    for name, run, A_c, X_c, expect in bsr_paths:
+        y, seconds, counts, launched = s4_run(name, run, (expect,) if expect
+                                              else ())
+        y64 = y.double().cpu().numpy()
+        ok = (launched and y64.shape == (A_c.shape[0], X_c.shape[1])
+              and relative_check(y64, bsr_oracle(A_c, X_c.double().cpu()
+                                                 .numpy())))
+        route = ("panel kernel" if counts["spmm_bsr_panel"] else
+                 "grouped kernel" if counts["spmm_bsr"] else
+                 "densify (one dense product)" if
+                 tspmm._should_densify(A_c) else "plain block product")
+        emit({"phase": "main_path", "path": name, "route": route,
+              "should_densify": tspmm._should_densify(A_c),
+              "seconds": seconds, "launches": counts, "oracle_check": ok,
+              "ok": ok})
+        if not ok:
+            failures.append(f"main path {name}")
+        del y
+    x_xb = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        32768).astype(np.float32)).to(dev)
+    tracemalloc.start()  # numpy's and scipy's host arrays are traced
+    y, seconds, counts, launched = s4_run(
+        "spmv XL BSR", lambda: spmv(A_xb, x_xb), (dg_spmv,))
+    host_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    dense_bytes = 4 * 32768 ** 2
+    ok = (launched and host_peak < 0.5 * dense_bytes
+          and relative_check(y.double().cpu().numpy(), bsr_oracle(
+              A_xb, x_xb.double().cpu().numpy()[:, None])[:, 0]))
+    emit({"phase": "main_path", "path": "spmv XL BSR (8,8) (CSR route, "
+          "first call converts and packs)", "seconds": seconds,
+          "host_peak_bytes": host_peak, "dense_fp32_bytes": dense_bytes,
+          "launches": counts, "ok": ok})
+    if not ok:
+        failures.append("main path spmv XL BSR")
+    del y
+    emit({"phase": "inputs", "matrix": "block_cg_xl Poisson as BSR (8,8)",
+          "num_blocks": A_pob.num_blocks,
+          "max_blocks_a_row": int(A_pob.indptr.diff().max())})
+    res, seconds, counts, launched = s4_run(
+        "block_cg_xl BSR", lambda: block_cg(A_pob, B_bc, tol=1e-5,
+                                            maxiter=4000),
+        (("spmm_bsr_panel",),))
+    X64 = res.x.double().cpu().numpy()
+    true_res = np.linalg.norm(po_sp @ X64 - B_np, axis=0)
+    reached = bool(np.all(res.residuals.cpu().numpy()
+                          <= 1e-5 * bn_bc * 1.001) and res.iters < 4000)
+    csr_iters = block_cells["block-plain"][2]
+    ok = (reached and bool(np.all(true_res <= 10 * 1e-5 * bn_bc))
+          and launched and abs(res.iters - csr_iters) <= 2)
+    bsr_block_iters = res.iters
+    emit({"phase": "main_path", "path": "block_cg_xl/block-plain BSR (8,8)",
+          "n": n_po, "k": 8, "iters_to_tol": res.iters,
+          "csr_operator_iters": csr_iters, "reached_tol": reached,
+          "true_rel_residual_max": float((true_res / bn_bc).max()),
+          "seconds": seconds, "launches": counts, "ok": ok})
+    if not ok:
+        failures.append("main path block_cg_xl BSR")
+    del res
+    b_pob_np = np.random.default_rng(8).standard_normal(n_po).astype(
+        np.float32)
+    b_pob = torch.from_numpy(b_pob_np).to(dev)
+    # its spmv takes the BSR's CSR, which at 5 entries a row the JAX
+    # package's rule leaves unpacked: the plain CSR product, no kernel
+    res, seconds, counts, launched = s4_run(
+        "cg BSR", lambda: cg(A_pob, b_pob, tol=1e-5, maxiter=6000), ())
+    true_res = float(np.linalg.norm(po_sp @ res.x.double().cpu().numpy()
+                                    - b_pob_np))
+    bn_pob = float(np.linalg.norm(b_pob_np))
+    csr_iters = cg_cells[("ilu_cg_xl", "plain")][4]
+    ok = (float(res.residual) <= 1e-5 * bn_pob * 1.001 and res.iters < 6000
+          and true_res <= 10 * 1e-5 * bn_pob and launched
+          and abs(res.iters - csr_iters) <= 2)
+    bsr_cg_iters = res.iters
+    emit({"phase": "main_path", "path": "cg ilu_cg_xl/plain BSR (8,8)",
+          "iters_to_tol": res.iters, "csr_operator_iters": csr_iters,
+          "true_rel_residual": true_res / bn_pob, "seconds": seconds,
+          "launches": counts, "ok": ok})
+    if not ok:
+        failures.append("main path cg BSR")
+    del res
+    # spmm_bsr forward and backward on the bench's bsr point: dX against
+    # fp64 denseᵀ @ g, the block gradients against fp64 g @ Xᵀ on the
+    # stored blocks
+    g_np = np.random.default_rng(35).standard_normal(
+        (2048, 128)).astype(np.float32)
+    data_g = A_bb.data.clone().requires_grad_(True)
+    A_g = dataclasses.replace(A_bb, data=data_g)
+    X_g = X_bb.clone().requires_grad_(True)
+
+    def bsr_grad():
+        y = kb.spmm_bsr(A_g, X_g)
+        y.backward(torch.from_numpy(g_np).to(dev))
+        return y
+
+    y, seconds, counts, launched = s4_run("spmm_bsr backward", bsr_grad,
+                                          (("spmm_bsr_panel",),))
+    dX64 = dense_bb.T.astype(np.float64) @ g_np.astype(np.float64)
+    gx = g_np.astype(np.float64) @ Xbb_np.astype(np.float64).T
+    _, ind_g, _ = bsr_host(A_bb)
+    brow_g = np.repeat(np.arange(256), np.diff(bsr_host(A_bb)[0]))
+    ddata64 = gx.reshape(256, 8, 256, 8)[brow_g, :, ind_g, :]
+    ok = (launched
+          and relative_check(X_g.grad.double().cpu().numpy(), dX64)
+          and relative_check(data_g.grad[: A_bb.num_blocks].double().cpu()
+                             .numpy().reshape(-1), ddata64.reshape(-1)))
+    emit({"phase": "main_path", "path": "spmm_bsr forward and backward "
+          "bench (8,8) k=128", "seconds": seconds, "launches": counts,
+          "oracle_check": ok, "ok": ok})
+    if not ok:
+        failures.append("main path spmm_bsr backward")
+    del y, data_g, A_g, X_g
     mark("main path")
 
     for kn, v in main_launches.items():
@@ -1934,6 +2262,95 @@ def main() -> int:
               "per_iter_device_ms": dms, "per_iter_wall_ms": wms,
               "iters_to_tol": iters, "ms_to_tol": wms * iters,
               "device_ms_to_tol": dms * iters})
+
+    # slice 6: each BSR kernel and shape beside its plain version, the
+    # library's BSR product (torch.sparse_bsr_tensor @ X,
+    # where this torch takes it; else cuSPARSE CSR of the same matrix,
+    # named in ``library``) and, on the bench's bsr point, cuBLAS of the
+    # densified matrix (the densify route's own product); then the BSR
+    # paths end to end and block CG's iteration on the BSR operator
+    lib_mats = {}
+
+    def bsr_library(A_c, X_c):
+        """(label, call) of the library's product of A_c and X_c."""
+        key = (id(A_c), X_c.dtype)
+        if key in lib_mats:
+            return lib_mats[key]
+        bm, bn = A_c.block_shape
+        nb = A_c.num_blocks
+        size = (A_c.num_block_rows * bm, -(-A_c.shape[1] // bn) * bn)
+        def csr():
+            sp_c = A_c.to_scipy()
+            return torch.sparse_csr_tensor(
+                torch.from_numpy(sp_c.indptr.astype(np.int64)),
+                torch.from_numpy(sp_c.indices.astype(np.int64)),
+                torch.from_numpy(sp_c.data.astype(np.float32)),
+                size=sp_c.shape).to(dev)
+
+        notes = []
+        for label, make in [
+                ("torch.sparse_bsr_tensor @ X",
+                 lambda: (torch.sparse_bsr_tensor(
+                     A_c.indptr.long(), A_c.indices[:nb].long(),
+                     A_c.data[:nb].to(X_c.dtype), size=size), X_c)),
+                ("cuSPARSE CSR", lambda: (csr().to(X_c.dtype), X_c)),
+                ("cuSPARSE CSR fp32", lambda: (csr(), X_c.float()))]:
+            try:
+                S, Xl = make()
+                torch.matmul(S, Xl)
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError) as e:
+                notes.append(f"{label}: {type(e).__name__}: "
+                             f"{str(e).splitlines()[0][:100]}")
+                continue
+            lib_mats[key] = (label + (f" (refused: {notes})" if notes
+                                      else ""),
+                             lambda S=S, Xl=Xl: S @ Xl)
+            return lib_mats[key]
+        raise RuntimeError(f"no library product of the BSR: {notes}")
+
+    s6_rows = {}
+    for kname, cases in s6_cases.items():
+        for case, kern, plain, A_c, X_c in cases:
+            flops, nbytes = bsr_work(A_c, X_c.shape[1],
+                                     A_c.data.element_size(),
+                                     X_c.element_size())
+            # bf16 blocks and X: the operations at the card's bf16 rate
+            bf16 = (A_c.data.dtype == X_c.dtype == torch.bfloat16)
+            bms, by = bound(flops, nbytes, PEAK_BF16 if bf16 else PEAK_FP32)
+            lib_name, lib = bsr_library(A_c, X_c)
+            row = {"kernel": kname, "case": case, "ms": dev_ms(kern),
+                   "plain_ms": dev_ms(plain), "library_ms": dev_ms(lib),
+                   "library": lib_name,
+                   "launches": main_launches[kname], "bound_ms": bms,
+                   "bound_by": by, "flops": flops, "bytes": nbytes,
+                   "num_blocks": A_c.num_blocks}
+            if case.startswith("bench (8,8) k=128"):
+                D = A_c.todense()
+                row["cublas_dense_ms"] = dev_ms(lambda D=D, X_c=X_c: D @ X_c)
+                del D
+            emit({"phase": "timing", **row})
+            s6_rows[(kname, case)] = row
+    del lib_mats
+    for label, run in [
+            ("spmm XL BSR (8,8) k=128", lambda: spmm(A_xb, X_xb)),
+            ("spmm BSR (128,128) n=16384 k=128", lambda: spmm(A_big, X_big)),
+            ("spmm bench BSR (8,8) method=sparse",
+             lambda: spmm(A_bb, X_bb, method="sparse")),
+            ("spmm bench BSR (8,8) method=auto", lambda: spmm(A_bb, X_bb)),
+            ("spmv XL BSR (8,8)", lambda: spmv(A_xb, x_xb))]:
+        emit({"phase": "e2e", "path": label, "wall_ms": wall_ms(run),
+              "device_ms": dev_ms(run)})
+    for label, run, iters in [
+            ("block_cg_xl/block-plain BSR (8,8)",
+             lambda: block_cg(A_pob, B_bc, tol=0.0, maxiter=25),
+             bsr_block_iters),
+            ("cg ilu_cg_xl/plain BSR (8,8)",
+             lambda: cg(A_pob, b_pob, tol=0.0, maxiter=25), bsr_cg_iters)]:
+        dms, wms = dev_ms(run) / 25, wall_ms(run) / 25
+        emit({"phase": "e2e", "path": label, "per_iter_device_ms": dms,
+              "per_iter_wall_ms": wms, "iters_to_tol": iters,
+              "ms_to_tol": wms * iters, "device_ms_to_tol": dms * iters})
     mark("timings")
 
     if failures:
@@ -2031,6 +2448,19 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"sparsematrix_tpu_torch/csrc/{src}",
             "replaces": f"sparsematrix_tpu/kernels/{replaces}",
+            "launches": main_launches[name],
+            "max_abs_err": errs[(name, case)], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "case": case})
+    for name, case in [("spmm_bsr", "(128,128) n=16384 k=128"),
+                       ("spmm_bsr_panel", "XL (8,8) k=128")]:
+        row = s6_rows[(name, case)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sparsematrix_tpu_torch/csrc/spmm_bsr.cu",
+            "replaces": "sparsematrix_tpu/kernels/bsr_pallas.py:" + (
+                "62" if name == "spmm_bsr" else "159"),
             "launches": main_launches[name],
             "max_abs_err": errs[(name, case)], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -10,7 +10,8 @@ passed as it is; an optional field may be ``None``; a tuple of arrays (a
 ``ClosPermutePlan``'s plane triples) is carried element by element.
 Triangular-solve plans carry the same way: a ``TriWavesPlan``'s or
 ``TriFusedPlan``'s ``t_plan`` and a ``TriFixPlan``'s ``e_packed`` (a
-``SellRowLane``) first; a string static (``mode``) stays a string.  bf16 arrays
+``SellRowLane``) first; a string static (``mode``) stays a string.  A
+``BSR`` whose ``block_row_ids`` is None carries as None.  bf16 arrays
 (numpy's ``bfloat16`` extension type) become ``torch.bfloat16`` tensors
 bit for bit.  Nothing of the JAX package is imported.
 """
@@ -22,11 +23,13 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from .bsr import BSR
 from .codebook import CodebookCSR
 from .codebook_dense import CodebookDense
+from .coo import COO
 from .csr import CSR
 from .dense import Dense
-from .ell import BlockedELL
+from .ell import ELL, BlockedELL
 from .stripdense import StripDense
 
 __all__ = ["from_numpy_fields", "kinds"]
@@ -36,6 +39,7 @@ def kinds() -> dict:
     """Container classes by name.  The packed layouts live in
     ``kernels/``, which imports this package, so they are looked up when
     called."""
+    from ..kernels.bsr import BSRPanels
     from ..kernels.spmv_dualgather import DualGather, PooledDG
     from ..kernels.spmv_octet import Octet
     from ..kernels.spmv_rowlane import SellRowLane
@@ -52,11 +56,12 @@ def kinds() -> dict:
 
     return {cls.__name__: cls
             for cls in (CodebookDense, CodebookCSR, CSR, Dense, BlockedELL,
-                        StripDense, DualGather, PooledDG, Octet, SellRowLane,
-                        SellSuperblock, SellSpmv, SellRowPure, PermutePlan,
-                        ClosPermutePlan, SkewSpmv, SpGEMMPlan, SpGEMMPacked,
-                        TriSolvePlan, TriFixPlan, TriLevelPlan, TriFusedPlan,
-                        TriWavesPlan, SpluSolver)}
+                        StripDense, BSR, COO, ELL, BSRPanels, DualGather,
+                        PooledDG, Octet, SellRowLane, SellSuperblock,
+                        SellSpmv, SellRowPure, PermutePlan, ClosPermutePlan,
+                        SkewSpmv, SpGEMMPlan, SpGEMMPacked, TriSolvePlan,
+                        TriFixPlan, TriLevelPlan, TriFusedPlan, TriWavesPlan,
+                        SpluSolver)}
 
 
 def _tensor(arr, dev):

@@ -18,7 +18,7 @@ from ..config import resolve_device
 from .base import (SparseFormat, default_index_dtype, pad_to, sparse_container,
                    static_field)
 
-__all__ = ["CSR"]
+__all__ = ["CSR", "CSC"]
 
 
 def _expand_rowids(indptr: np.ndarray, capacity: int, rows: int) -> np.ndarray:
@@ -136,3 +136,22 @@ class CSR(SparseFormat):
         )
         object.__setattr__(self, "_host_scipy", out)
         return out
+
+    def transpose(self) -> "CSR":
+        """Host-side transpose (a build-time step, like the reference's
+        ``SblasTrans`` encode-time transpose, sparse-matrix.cc:65-98)."""
+        return CSR.from_scipy(self.to_scipy().T.tocsr(), capacity=self.capacity,
+                              device=self.device)
+
+    @property
+    def T(self) -> "CSR":
+        return self.transpose()
+
+
+class CSC:
+    """CSC is the CSR of the transpose: ``CSC.fromdense(a)`` returns the
+    ``CSR`` of ``a.T`` (every kernel reads CSR-like layouts)."""
+
+    @staticmethod
+    def fromdense(dense, **kw) -> CSR:
+        return CSR.fromdense(np.asarray(dense).T, **kw)

@@ -38,5 +38,26 @@ class Dense(SparseFormat):
             nnz=int((dense != 0).sum()),
         )
 
+    @classmethod
+    def from_sparse(cls, sp, dtype=None):
+        """Materialize any sparse container once (a build step), on the
+        container's device."""
+        arr = sp.todense()
+        if dtype is not None:
+            arr = arr.to(dtype)
+        return cls(data=arr, shape=sp.shape, nnz=sp.nnz)
+
     def todense(self) -> torch.Tensor:
         return self.data
+
+    def transpose(self) -> "Dense":
+        return Dense(data=self.data.T, shape=(self.shape[1], self.shape[0]),
+                     nnz=self.nnz)
+
+    @property
+    def T(self) -> "Dense":
+        return self.transpose()
+
+    @property
+    def density(self) -> float:
+        return self.nnz / (self.shape[0] * self.shape[1])

@@ -1,10 +1,11 @@
-"""Blocked-ELL format.
+"""ELL and Blocked-ELL formats.
 
-Twin of ``BlockedELL`` in ``sparsematrix_tpu/formats/ell.py`` (the scalar
-``ELL`` is not ported yet).  The matrix is tiled into (bm × bk) dense
-blocks; each block-row stores a fixed number of blocks, so SpMM is a sum
-of dense (bm × bk) @ (bk × n) products indexed by ``block_cols``.
-Padding slots reference block-column 0 with zero values and contribute
+Twin of ``sparsematrix_tpu/formats/ell.py``.  ``ELL``: every row padded to
+a fixed entry count R, as dense (rows, R) index and value planes.
+``BlockedELL``: the matrix is tiled into (bm × bk) dense blocks; each
+block-row stores a fixed number of blocks, so SpMM is a sum of dense
+(bm × bk) @ (bk × n) products indexed by ``block_cols``.  Padding entries
+and slots reference (block-)column 0 with zero values and contribute
 exactly 0 to every product (sparse-matrix.cc:29-31).
 """
 from __future__ import annotations
@@ -19,7 +20,67 @@ from ..config import resolve_device
 from .base import (SparseFormat, default_index_dtype, sparse_container,
                    static_field)
 
-__all__ = ["BlockedELL"]
+__all__ = ["ELL", "BlockedELL"]
+
+
+@sparse_container
+@dataclasses.dataclass(frozen=True)
+class ELL(SparseFormat):
+    cols: torch.Tensor  # (rows, R) int32
+    data: torch.Tensor  # (rows, R)
+    valid: torch.Tensor  # (rows, R) bool, True for stored entries
+    shape: Tuple[int, int] = static_field()
+    nnz: int = static_field()
+
+    @property
+    def row_capacity(self) -> int:
+        return self.cols.shape[1]
+
+    @classmethod
+    def fromdense(cls, dense, row_capacity: int | None = None,
+                  index_dtype=default_index_dtype, truncate: bool = False,
+                  device=None):
+        """Rows with more than ``row_capacity`` entries raise unless
+        ``truncate=True``; a truncated ELL's ``nnz`` counts the entries it
+        stores."""
+        dev = resolve_device(device)
+        dense = np.asarray(dense)
+        rows, _ = dense.shape
+        counts = (dense != 0).sum(axis=1)
+        R = int(counts.max()) if row_capacity is None else int(row_capacity)
+        R = max(R, 1)
+        if counts.size and int(counts.max()) > R and not truncate:
+            raise ValueError(
+                f"ELL.fromdense: a row has {int(counts.max())} entries > "
+                f"row_capacity={R}; pass truncate=True to drop the excess"
+            )
+        cols = np.zeros((rows, R), dtype=np.int64)
+        vals = np.zeros((rows, R), dtype=dense.dtype)
+        valid = np.zeros((rows, R), dtype=bool)
+        # the stored entries of each row, in column order, by their rank
+        r, c = np.nonzero(dense)
+        rank = np.arange(r.size) - np.repeat(np.cumsum(counts) - counts, counts)
+        keep = rank < R
+        r, c, rank = r[keep], c[keep], rank[keep]
+        cols[r, rank] = c
+        vals[r, rank] = dense[r, c]
+        valid[r, rank] = True
+        return cls(
+            cols=torch.from_numpy(cols).to(dev, index_dtype),
+            data=torch.from_numpy(vals).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+            shape=(int(rows), int(dense.shape[1])),
+            nnz=int(np.minimum(counts, R).sum()),
+        )
+
+    def todense(self) -> torch.Tensor:
+        rows, R = self.cols.shape
+        out = torch.zeros(self.shape, dtype=self.data.dtype,
+                          device=self.data.device)
+        rid = torch.arange(rows, device=self.cols.device)[:, None].expand(rows, R)
+        # zero padding values make the duplicate (row, 0) scatters harmless
+        return out.index_put_((rid.reshape(-1), self.cols.reshape(-1).long()),
+                              self.data.reshape(-1), accumulate=True)
 
 
 @sparse_container

@@ -2,6 +2,8 @@
 version.  Importing builds nothing; a kernel is compiled at its first
 launch (``_build.py``)."""
 from ._build import launch_counts
+from .bsr import (BSRPanels, pack_bsr_panels, spmm_bsr,
+                  spmm_bsr_grouped_reference, spmm_bsr_panel_reference)
 from .codebook import codebook_matmul, codebook_spmm, codebook_spmm_reference
 from .spmm_blocked_ell import spmm_blocked_ell, spmm_blocked_ell_reference
 from .spmm_dualgather import spmm_dualgather, spmm_dualgather_reference
@@ -27,6 +29,11 @@ from .window_permute import window_permute, window_permute_reference
 
 __all__ = [
     "launch_counts",
+    "BSRPanels",
+    "pack_bsr_panels",
+    "spmm_bsr",
+    "spmm_bsr_grouped_reference",
+    "spmm_bsr_panel_reference",
     "DualGather",
     "PooledDG",
     "pack_dualgather",

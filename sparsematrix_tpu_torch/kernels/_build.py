@@ -45,14 +45,14 @@ HOST_BUILD_DIR = _PKG.parent / "build" / "host"
 SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmm_dualgather", "window_permute", "spmv_octet", "spmv_rowlane",
            "spmv_superblock", "trisolve_waves", "trisolve_fused",
-           "spmm_octet", "spmv_pooled", "spmv_sell")
+           "spmm_octet", "spmv_pooled", "spmv_sell", "spmm_bsr")
 # the launch counters: one per kernel (a source may hold several)
 KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb",
            "window_permute", "spmv_octet", "spmv_rowlane", "spmv_superblock",
            "trisolve_fused", "trisolve_chain", "trisolve_binv",
            "trisolve_chain_mm", "spmm_octet", "spmv_pooled", "spmv_sell",
-           "spmv_sell_rowpure")
+           "spmv_sell_rowpure", "spmm_bsr", "spmm_bsr_panel")
 # the host sources (native/<name>.cc)
 HOST_SOURCES = ("assign", "rowlane", "octet", "color", "factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,6 +7,16 @@ wrapper decides by the tensor's device (a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises).  So the CPU tests
 walk the same routes as the card.
 
+A ``BSR`` takes the JAX package's routes: at densify-eligible density a
+small-block BSR (bm·bn < 4096) is materialized once (a ``Dense`` cached
+on the container) and multiplied by one dense product, as the JAX package
+leaves it to XLA; otherwise ``bsr_dispatch``: (128, 128)-class blocks
+(bm·bn ≥ 4096) the grouped kernel, small blocks with ``bn % 8 == 0`` and
+at most 64 blocks a block-row the panel kernel (both through
+``kernels/bsr.py``'s ``spmm_bsr``), any other BSR the plain block
+product.  ``COO`` and ``ELL`` have plain products only, as in the JAX
+package.
+
 Low-density CSR takes the JAX package's multi-RHS routes: band-local
 matrices the strip layout, power-law matrices the skew hybrid
 (``ops/skew.py``), ≤16 entries a row the sliced-ELL row gather, the rest
@@ -30,8 +40,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
-                       StripDense)
+from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
+                       CodebookDense, Dense, StripDense)
+from ..formats.base import cached_on
+from ..kernels.bsr import (small_blocks, spmm_bsr, spmm_bsr_grouped_reference,
+                           takes_kernel)
 from ..kernels.codebook import codebook_spmm
 from ..kernels.spmm_blocked_ell import (spmm_blocked_ell,
                                         spmm_blocked_ell_reference)
@@ -43,9 +56,9 @@ from ..kernels.spmv_sell import SellRowPure, SellSpmv
 from ..kernels.spmv_superblock import SellSuperblock
 from .skew import SkewSpmv, is_skewed, pack_skew, spmm_skew
 from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
-from .spmv import _cached, _maybe_strip
+from .spmv import _maybe_strip
 
-__all__ = ["spmm", "spmm_reference", "spmm_densify"]
+__all__ = ["spmm", "spmm_reference", "spmm_densify", "spmm_right"]
 
 
 def _matmul(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -62,6 +75,19 @@ def _spmm_csr_plain(A: CSR, X):
     # one spare row takes the padding entries (the segment_sum drop)
     out = torch.zeros((rows + 1, X.shape[1]), dtype=prod.dtype, device=X.device)
     return out.index_add_(0, rid, prod)[:rows]
+
+
+def _spmm_coo_plain(A: COO, X):
+    prod = A.data[:, None] * X[A.col.long()]
+    out = torch.zeros((A.shape[0], X.shape[1]), dtype=prod.dtype,
+                      device=X.device)
+    return out.index_add_(0, A.row.long(), prod)
+
+
+def _spmm_ell_plain(A: ELL, X):
+    # padding cells hold 0 at column 0
+    dt = torch.promote_types(A.data.dtype, X.dtype)
+    return torch.einsum("rn,rnk->rk", A.data.to(dt), X[A.cols.long()].to(dt))
 
 
 def _spmm_codebook_plain(A: CodebookCSR, X):
@@ -91,6 +117,9 @@ def _spmm_strip_plain(A: StripDense, X):
 
 _PLAIN_IMPLS = {
     CSR: _spmm_csr_plain,
+    COO: _spmm_coo_plain,
+    ELL: _spmm_ell_plain,
+    BSR: spmm_bsr_grouped_reference,
     BlockedELL: spmm_blocked_ell_reference,
     CodebookCSR: _spmm_codebook_plain,
     CodebookDense: _spmm_codebook_dense_plain,
@@ -103,11 +132,21 @@ def _spmm_codebook_dense_kernel(A: CodebookDense, X):
     return codebook_spmm(A.idx, A.val_table, X)
 
 
+def bsr_dispatch(A: BSR, X):
+    """The JAX package's ``bsr_dispatch`` (``ops/spmm.py:433-450``):
+    MXU-sized blocks the grouped kernel; small blocks the panel kernel
+    where the panel layout applies; else the plain block product."""
+    if takes_kernel(A):
+        return spmm_bsr(A, X)
+    return spmm_bsr_grouped_reference(A, X)
+
+
 # formats whose product is a hand-written kernel (the twin of
 # ``_pallas_impl``); CodebookDense is the port's one routing difference
 _KERNEL_IMPLS = {
     BlockedELL: spmm_blocked_ell,
     CodebookDense: _spmm_codebook_dense_kernel,
+    BSR: bsr_dispatch,
 }
 
 
@@ -149,7 +188,7 @@ _CBD_CACHE: dict = {}
 def _codebook_dense_of(A: CodebookCSR):
     if A.shape[0] * A.shape[1] > _DENSIFY_MAX_ELEMS:
         return None  # index plane too large to materialize
-    return _cached(_CBD_CACHE, A, _codebook_dense_build)
+    return cached_on(_CBD_CACHE, A, _codebook_dense_build)
 
 
 def _codebook_dense_build(A: CodebookCSR):
@@ -162,10 +201,17 @@ def _codebook_dense_build(A: CodebookCSR):
         idxm, A.val_table[: A.table_size].cpu().numpy(), device=A.device)
 
 
+# a small-block BSR's dense matrix, materialized once per container
+_BSR_DENSE_CACHE: dict = {}
+
+
+def _bsr_dense_of(A: BSR) -> Dense:
+    return cached_on(_BSR_DENSE_CACHE, A, Dense.from_sparse)
+
+
 # multi-RHS walk packs per CSR container (misses cached too)
 _DG_CACHE: dict = {}
 _STRIP_CACHE: dict = {}
-
 
 
 def _dg_pack_build(A: CSR):
@@ -187,13 +233,13 @@ def _dg_pack_of(A: CSR):
     ``DualGather``, or the skew hybrid for power-law matrices."""
     if A.nnz < 4096:
         return None
-    return _cached(_DG_CACHE, A, _dg_pack_build)
+    return cached_on(_DG_CACHE, A, _dg_pack_build)
 
 
 def _strip_of(A: CSR):
     """Cached StripDense conversion for band-local CSR (the spmv auto
     path's rule)."""
-    return _cached(_STRIP_CACHE, A, _maybe_strip)
+    return cached_on(_STRIP_CACHE, A, _maybe_strip)
 
 
 def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
@@ -228,6 +274,11 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
     if type(A) is Dense:
         # already materialized: its plain product is the fast path
         return spmm_reference(A, X)
+    if (method == "auto" and type(A) is BSR and _should_densify(A)
+            and small_blocks(A)):
+        # small blocks at densify-eligible density: one dense product of
+        # the matrix materialized once
+        return spmm_reference(_bsr_dense_of(A), X)
     impl = _KERNEL_IMPLS.get(type(A))
     if impl is not None:
         return impl(A, X)
@@ -252,3 +303,11 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
     if method == "auto" and _should_densify(A):
         return spmm_densify(A, X)
     return spmm_reference(A, X)
+
+
+def spmm_right(X: torch.Tensor, A_transposed) -> torch.Tensor:
+    """``Y = X @ A`` for dense X and sparse A, through ``X @ A = (Aᵀ @
+    Xᵀ)ᵀ``.  ``A_transposed`` is the sparse storage of ``Aᵀ`` (n×k for a
+    logical k×n A), made at build time, as the reference encodes B with
+    ``SblasTrans`` (blas_test.h:145, sparse-matrix.cc:65-98)."""
+    return spmm(A_transposed, X.T).T

@@ -9,6 +9,12 @@ product runs its kernel wrapper, which decides by the tensor's device (a
 CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises).  So the CPU tests walk the same routes as the card.
 
+A small-block ``BSR`` (bm·bn < 4096) is converted once to CSR
+(``bsr_to_csr``, cached on the container, never through the dense
+matrix) and takes the CSR route; a larger-block BSR, a ``COO`` and an
+``ELL`` take their plain products, as in the JAX package (its
+``spmv_pallas.PALLAS_IMPLS`` is empty).
+
 The layouts: dual-gather (the default; ``spill_cap`` adds its pooled
 spill tail), strip (band-local), octet (≲2 entries a row), the rowlane
 superblock (scattered patterns), rowlane, and the skew hybrid (power-law
@@ -18,12 +24,12 @@ route picks, as in the JAX package.
 """
 from __future__ import annotations
 
-import weakref
-
 import torch
 
-from ..formats import (CSR, BlockedELL, CodebookCSR, CodebookDense, Dense,
-                       StripDense)
+from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
+                       CodebookDense, Dense, StripDense, bsr_to_csr)
+from ..formats.base import cached_on
+from ..kernels.bsr import small_blocks, spmm_bsr_grouped_reference
 from ..kernels.spmm_blocked_ell import spmm_blocked_ell_reference
 from ..kernels.spmv_dualgather import (DualGather, pack_dualgather,
                                        spmv_dualgather)
@@ -50,6 +56,21 @@ def _spmv_csr_plain(A: CSR, x):
     # one spare row takes the padding entries (the segment_sum drop)
     out = torch.zeros(rows + 1, dtype=prod.dtype, device=x.device)
     return out.index_add_(0, rid, prod)[:rows]
+
+
+def _spmv_coo_plain(A: COO, x):
+    prod = A.data * x[A.col.long()]
+    out = torch.zeros(A.shape[0], dtype=prod.dtype, device=x.device)
+    return out.index_add_(0, A.row.long(), prod)
+
+
+def _spmv_ell_plain(A: ELL, x):
+    # padding cells hold 0 at column 0
+    return (A.data * x[A.cols.long()]).sum(dim=1)
+
+
+def _spmv_bsr_plain(A: BSR, x):
+    return spmm_bsr_grouped_reference(A, x[:, None])[:, 0]
 
 
 def _spmv_bell_plain(A: BlockedELL, x):
@@ -83,6 +104,9 @@ def _spmv_strip_plain(A: StripDense, x):
 
 _PLAIN_IMPLS = {
     CSR: _spmv_csr_plain,
+    COO: _spmv_coo_plain,
+    ELL: _spmv_ell_plain,
+    BSR: _spmv_bsr_plain,
     BlockedELL: _spmv_bell_plain,
     CodebookCSR: _spmv_codebook_plain,
     CodebookDense: _spmv_codebook_dense_plain,
@@ -105,21 +129,11 @@ def spmv_reference(A, x):
 # packing and routing
 # ---------------------------------------------------------------------------
 
-# auto-pack cache: CSR container → its pack, built at the first spmv
+# auto-pack cache: CSR container → its pack, built at the first spmv;
+# small-block BSR container → its CSR
 _AUTO_PACK_CACHE: dict = {}
+_BSR_CSR_CACHE: dict = {}
 
-
-def _cached(cache: dict, A, build):
-    """``build(A)``, computed once per container: keyed by identity (a
-    container holds unhashable tensors), the entry leaves with ``A``."""
-    key = id(A)
-    entry = cache.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    value = build(A)
-    ref = weakref.ref(A, lambda _unused, k=key: cache.pop(k, None))
-    cache[key] = (ref, value)
-    return value
 
 # auto-pack pays off once rows are long enough for slabs to fill; below
 # this the plain CSR product is used
@@ -215,7 +229,7 @@ def _auto_pack(A: CSR):
     """Pack-and-cache for a CSR; None when auto-packing does not apply."""
     if A.nnz < _AUTO_PACK_MIN_NNZ or A.nnz < _AUTO_PACK_MIN_NNZ_PER_ROW * A.shape[0]:
         return None
-    return _cached(_AUTO_PACK_CACHE, A, prepare_spmv)
+    return cached_on(_AUTO_PACK_CACHE, A, prepare_spmv)
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
@@ -239,6 +253,9 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if x.ndim != 1 or x.shape[0] != A.shape[1]:
         raise ValueError(
             f"spmv: x shape {tuple(x.shape)} incompatible with matrix {A.shape}")
+    if type(A) is BSR and small_blocks(A):
+        # small blocks: the CSR auto-pack route
+        A = cached_on(_BSR_CSR_CACHE, A, bsr_to_csr)
     if type(A) is CSR:
         packed = _auto_pack(A)
         if packed is not None:

@@ -974,3 +974,160 @@ def test_bicgstab_on_card(dev):
     x = rg.x.double().cpu().numpy()
     assert (np.linalg.norm(sp.astype(np.float64) @ x - b)
             <= 10 * 1e-5 * np.linalg.norm(b))
+
+
+# -- slice 6: BSR --------------------------------------------------------------
+
+def _bsr_case(seed, shape, block, density, device, capacity=None,
+              empty_row=None, M=None):
+    """``(dense, BSR)``: dense blocks at ``density`` of the block slots
+    (the bench's law), ragged edges cut; ``M`` puts M blocks in block-row
+    0 (the other rows stay as drawn)."""
+    from sparsematrix_tpu_torch.formats import csr_to_bsr
+
+    rng = np.random.default_rng(seed)
+    bm, bn = block
+    nbr, nbc = -(-shape[0] // bm), -(-shape[1] // bn)
+    mask = rng.random((nbr, nbc)) < density
+    if M is not None:
+        mask[0] = False
+        mask[0, :M] = True
+    if empty_row is not None:
+        mask[empty_row] = False
+    dense = (np.kron(mask, np.ones(block)).astype(np.float32)
+             * gen_matrix_random(rng, nbr * bm, nbc * bn, -5, 5))
+    dense = np.ascontiguousarray(dense[: shape[0], : shape[1]])
+    return dense, csr_to_bsr(CSR.fromdense(dense, device=device), block,
+                             block_capacity=capacity)
+
+
+BSR_CARD = [
+    # (shape, block, density, capacity, empty block-row, M)
+    ((256, 256), (4, 4), 0.1, None, None, None),
+    ((2048, 2048), (8, 8), 0.05, None, None, None),
+    ((1000, 777), (8, 8), 0.05, 9000, 3, None),   # ragged, padding, empty row
+    ((512, 1024), (8, 128), 0.3, None, 2, None),
+    ((512, 512), (128, 128), 0.4, 40, 1, None),
+    ((300, 500), (6, 10), 0.2, None, 0, None),    # odd blocks: grouped
+    ((64, 8 * 64), (8, 8), 0.0, None, None, 64),  # M = 64: still panels
+    ((64, 8 * 65), (8, 8), 0.0, None, None, 65),  # M = 65: grouped
+    ((64, 512), (8, 8), 0.0, None, None, 1),      # M = 1
+]
+
+
+def _bsr_id(c):
+    return (f"{c[0][0]}x{c[0][1]}-b{c[1][0]}x{c[1][1]}"
+            + (f"-cap{c[3]}" if c[3] else "") + (f"-M{c[5]}" if c[5] else ""))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BSR_CARD, ids=_bsr_id)
+def test_bsr_kernels(dev, case, dtype):
+    """Rows 3 and 4 against their plain versions on the same CUDA tensors
+    (both kernels on every case, the panel kernel on the case's panel
+    pack), and ``spmm_bsr``'s own route against fp64."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    shape, block, density, capacity, empty, M = case
+    dense, A = _bsr_case(sum(shape), shape, block, density, dev, capacity,
+                         empty, M)
+    A = A.astype(dtype)
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(1),
+                                           shape[1], 33)).to(dev, dtype)
+    _build.launch_counts.clear()
+    assert_kernel_close(kb._spmm_bsr_cuda(A, X),
+                        kb.spmm_bsr_grouped_reference(A, X))
+    P = kb.pack_bsr_panels(A)
+    assert_kernel_close(kb._spmm_bsr_panel_cuda(P, X),
+                        kb.spmm_bsr_panel_reference(P, X))
+    assert _build.launch_counts["spmm_bsr"] == 1
+    assert _build.launch_counts["spmm_bsr_panel"] == 1
+    _build.launch_counts.clear()
+    Y = kb.spmm_bsr(A, X)
+    panel = kb.panel_route(A) is not None
+    assert _build.launch_counts["spmm_bsr_panel" if panel else "spmm_bsr"] == 1
+    if M is not None:
+        assert panel == (M <= 64)
+    want = dense.astype(np.float64) @ X.double().cpu().numpy()
+    check = quantized_check if dtype == torch.bfloat16 else relative_check
+    assert check(Y.double().cpu().numpy(), want)
+    if empty is not None:
+        bm = block[0]
+        assert float(Y[empty * bm: (empty + 1) * bm].abs().max()) == 0.0
+
+
+def test_bsr_gradients_on_card(dev):
+    """``spmm_bsr``'s backward pass on the card: fp64 ``denseᵀ @ g`` and
+    ``g @ Xᵀ`` on the stored blocks, padding slots' gradients zero."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    dense, A = _bsr_case(3, (200, 150), (8, 8), 0.2, dev, capacity=400)
+    rng = np.random.default_rng(4)
+    X = torch.from_numpy(rng.standard_normal((150, 12)).astype(np.float32)).to(
+        dev).requires_grad_(True)
+    g = rng.standard_normal((200, 12))
+    data = A.data.clone().requires_grad_(True)
+    _build.launch_counts.clear()
+    kb.spmm_bsr(dataclasses.replace(A, data=data), X).backward(
+        torch.from_numpy(g).float().to(dev))
+    assert _build.launch_counts["spmm_bsr_panel"] == 1
+    np.testing.assert_allclose(X.grad.double().cpu().numpy(), dense.T @ g,
+                               rtol=1e-4, atol=1e-3)
+    gx = np.zeros((25 * 8, 19 * 8))
+    gx[:200, :150] = g @ X.detach().double().cpu().numpy().T
+    nb = A.num_blocks
+    rows = A.block_row_ids[:nb].long().cpu().numpy()
+    cols = A.indices[:nb].long().cpu().numpy()
+    want = gx.reshape(25, 8, 19, 8)[rows, :, cols, :]
+    got = data.grad.double().cpu().numpy()
+    np.testing.assert_allclose(got[:nb], want, rtol=1e-4, atol=1e-3)
+    assert np.all(got[nb:] == 0)
+
+
+def test_bsr_routes_on_card(dev):
+    """``spmm``/``spmv``/``block_cg`` on small BSRs through the routes:
+    the panel kernel, the grouped kernel, densify, the CSR route of
+    ``spmv``; the card's results equal fp64, and block CG reaches tol in
+    the CPU's iterations (±2)."""
+    from sparsematrix_tpu_torch import block_cg, csr_to_bsr
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    dense, A = _bsr_case(5, (1024, 1024), (8, 8), 0.02, dev)
+    X = gen_matrix_random(np.random.default_rng(6), 1024, 16)
+    want = dense.astype(np.float64) @ X
+    Xd = torch.from_numpy(X).to(dev)
+    for method in ("sparse", "auto"):
+        _build.launch_counts.clear()
+        Y = spmm(A, Xd, method=method)
+        assert _build.launch_counts["spmm_bsr_panel"] == 1, method
+        assert relative_check(Y.double().cpu().numpy(), want)
+    _, B = _bsr_case(7, (1024, 1024), (128, 128), 0.1, dev)
+    _build.launch_counts.clear()
+    spmm(B, Xd)
+    assert _build.launch_counts["spmm_bsr"] == 1
+    dense_c, C = _bsr_case(8, (256, 256), (8, 8), 0.3, dev)
+    _build.launch_counts.clear()
+    Yc = spmm(C, Xd[:256])  # densify-eligible: one dense product, no kernel
+    assert sum(_build.launch_counts.values()) == 0
+    assert relative_check(Yc.double().cpu().numpy(),
+                          dense_c.astype(np.float64) @ X[:256])
+    x = torch.from_numpy(X[:, 0].copy()).to(dev)
+    _build.launch_counts.clear()
+    y = spmv(A, x)
+    assert sum(_build.launch_counts[kn] for kn in (
+        "spmv_dualgather", "spmv_dualgather_sb", "spmv_octet")) >= 1
+    assert relative_check(y.double().cpu().numpy(), want[:, 0])
+    n, sp = poisson2d(4096)
+    sp = sp.astype(np.float32)
+    Bn = np.random.default_rng(9).standard_normal((n, 8)).astype(np.float32)
+    res = {}
+    for d in ("cpu", dev):
+        P = csr_to_bsr(CSR.from_scipy(sp, device=d), (8, 8))
+        _build.launch_counts.clear()
+        res[str(d)] = block_cg(P, torch.from_numpy(Bn).to(d), tol=1e-5,
+                               maxiter=2000)
+    assert _build.launch_counts["spmm_bsr_panel"] > 0
+    assert abs(res["cuda"].iters - res["cpu"].iters) <= 2
+    Xs = res["cuda"].x.double().cpu().numpy()
+    assert np.all(np.linalg.norm(sp.astype(np.float64) @ Xs - Bn, axis=0)
+                  <= 10 * 1e-5 * np.linalg.norm(Bn, axis=0))

@@ -240,7 +240,7 @@ def test_carry_rejects_mismatched_fields():
     ref, _ = _carry_cases()["CSR"]
     arrays, statics = jax_fields(ref)
     with pytest.raises(ValueError, match="unknown container kind"):
-        tf.from_numpy_fields("COO", arrays, statics, device=CPU)
+        tf.from_numpy_fields("NoSuchFormat", arrays, statics, device=CPU)
     with pytest.raises(ValueError, match="array fields"):
         tf.from_numpy_fields("CSR", {**arrays, "extra": arrays["data"]},
                              statics, device=CPU)

@@ -108,6 +108,18 @@ def test_cpu_calls_launch_no_kernel():
     smt.spmm(Pd, torch.ones((1024, 3)))
     smt.spmv(smt.pack_sell(D, tr=16), torch.ones(1024))
     smt.spmv(smt.pack_sell_rowpure(D, rows_per_sublane=2), torch.ones(1024))
+    # slice 6: BSR through the panel, grouped and densify routes, its spmv
+    # through CSR, and the format layer's plain ops
+    for block in ((8, 8), (4, 4), (64, 64)):
+        Bs = smt.csr_to_bsr(D, block)
+        smt.spmm(Bs, torch.ones((1024, 3)), method="sparse")
+        smt.spmm(Bs, torch.ones((1024, 3)))
+        smt.spmv(Bs, torch.ones(1024))
+    smt.spmm_bsr(smt.csr_to_bsr(D, (8, 8)), torch.ones((1024, 3)))
+    smt.spmm(smt.csr_to_ell(D)[0], torch.ones((1024, 3)))
+    smt.spmv(smt.csr_to_coo(D), torch.ones(1024))
+    smt.spmm_t(D, torch.ones((256, 3)))
+    smt.sparse_add(D, D)
     # slice 4: every triangular-solve engine under the solvers (one BLAS
     # thread: the wave planner's many small inversions crawl when every
     # worker of a parallel run keeps a thread a core)
@@ -145,5 +157,7 @@ def test_package_data_lists_every_native_source():
     assert set(_build.SOURCES) == {p.stem for p in PKG.glob("csrc/*.cu")}
     assert {"spmm_octet", "spmv_pooled", "spmv_sell"} <= set(_build.SOURCES)
     assert {"spmm_octet", "spmv_pooled", "spmv_sell",
-            "spmv_sell_rowpure"} <= set(_build.KERNELS)
+            "spmv_sell_rowpure", "spmm_bsr", "spmm_bsr_panel"} <= set(
+                _build.KERNELS)
+    assert "spmm_bsr" in _build.SOURCES
     assert set(_build.HOST_SOURCES) == {p.stem for p in PKG.glob("native/*.cc")}
