@@ -54,7 +54,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    (4, 4) and at (128, 128) on n = 16384, the panel kernel on the XL BSR
    (n = 32768, (8, 8), block density 0.0078, k = 128) and at the shape
    block CG gives it (``block_cg_xl``'s Poisson system as a (8, 8) BSR,
-   k = 8), each BSR built by ``csr_to_bsr`` with its host seconds.
+   k = 8), each BSR built by ``csr_to_bsr`` with its host seconds.  Then
+   slice 7: the row-lane SpMM (row 8) at the JAX bench's
+   ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and on the XL
+   CSR as ``partition_rowlane`` packs it for one rank (k = 32, fp32 and
+   bf16 values).
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
    4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
@@ -85,10 +89,20 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    through its CSR (host arrays traced: no dense matrix), ``block_cg``
    and ``cg`` on ``block_cg_xl``'s Poisson system as a (8, 8) BSR (the
    CSR operator's iterations ±2), and ``spmm_bsr`` forward and backward
-   against fp64.  Every launch
-   counter is set to 0 just before each path and read just after, and
-   each kernel must have launched.  ``seconds`` lines give each phase's
-   time.
+   against fp64; then slice 7, the distribution layer: at world size 1
+   under NCCL in this process, ``dist_spmm_rowlane`` (row 8) and
+   ``dist_spmv_rowlane`` (row 7) on the XL CSR, ``dist_spmv``/``dist_spmm``
+   on its row and column partitions (``psum`` and ``psum_scatter``),
+   ``dist_spmv_dualgather``/``dist_spmm_dualgather`` (rows 10/11, 13/14),
+   ``dist_spmv_halo_ring``/``_var`` on a banded matrix (n = 2^20) and
+   ``dist_cg`` on ``ilu_cg_xl``'s system with Jacobi and with
+   ``block_ic0_precond`` (rows 19/20), its iterations against the
+   single-device ``cg``'s; then ``tests/_torch_dist_ranks.py`` on 2 and on
+   4 gloo ranks sharing the card (every ``dist_*`` of the slice on small
+   fixtures against fp64, with the kernels each rank launched).  Every
+   launch counter is set to 0 just before each path and read just after,
+   and each kernel must have launched.  ``seconds`` lines give each
+   phase's time.
 5. timings — device time of one call, from CUDA events around each of 30
    calls, each queued behind its own spin kernel (so the host's cost of
    issuing a call does not show) with the 50 MB L2 flushed before it,
@@ -112,7 +126,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    product, ``torch.sparse_bsr_tensor @ X`` (or cuSPARSE CSR where that
    is refused, named in ``library``) and, on the bench's point,
    cuBLAS of the densified matrix; then the BSR paths end to end and
-   block CG's and CG's iteration on the BSR operator.
+   block CG's and CG's iteration on the BSR operator.  For row 8 the
+   yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
+   are timed end to end, each beside its local kernel alone.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -121,15 +137,20 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import tracemalloc
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): non-tensor
 # fp32 FLOP/s, bf16 tensor-core FLOP/s and HBM3 bytes/s
@@ -344,6 +365,22 @@ def convection_system(side: int):
     sp = sp + 0.5 * sps.kron(sps.eye(side), sps.diags(
         [-1.0, 1.0], [-1, 1], (side, side)))
     return n, sp.tocsr().astype(np.float32)
+
+
+def banded_matrix(n: int = 1 << 20, half: int = 4):
+    """An n×n band of 2·half + 1 diagonals (a 1-D stencil's pattern, the
+    case of the halo exchanges), values uniform in ±1000 from
+    ``default_rng(40)``; x from the same generator.  Returns (scipy CSR
+    fp32, x)."""
+    import scipy.sparse as sps
+
+    g = np.random.default_rng(40)
+    offsets = list(range(-half, half + 1))
+    diags = [g.uniform(-1000, 1000, n - abs(o)).astype(np.float32)
+             for o in offsets]
+    sp = sps.diags(diags, offsets, shape=(n, n), format="csr",
+                   dtype=np.float32)
+    return sp, g.standard_normal(n).astype(np.float32)
 
 
 def bench_bsr_dense(n: int = 2048, block=(8, 8), density: float = 0.05,
@@ -1347,6 +1384,57 @@ def main() -> int:
         del got, want_plain, oracle_b
     mark("check, slice 6")
 
+    # slice 7: row 8 (the row-lane SpMM) against its plain version on the
+    # card (1e-5 of the output scale) and an fp64 oracle, at the JAX
+    # bench's spmm_csr/rowlane point (n = 2048, d = 0.05, k = 32,
+    # default_rng(1), its auto-group pack; suite.py:337-342, :386-405) and
+    # at the shape the main path gives it: the XL CSR packed by
+    # partition_rowlane for one rank (group 32), k = 32, with fp32 values
+    # and with bf16 values (against the oracle of the bf16-rounded values)
+    par = importlib.import_module("sparsematrix_tpu_torch.parallel")
+    drl = importlib.import_module(
+        "sparsematrix_tpu_torch.parallel.dist_rowlane")
+    from sparsematrix_tpu_torch.kernels.spmm_rowlane import (
+        _spmm_rowlane_cuda, spmm_rowlane_reference)
+
+    rng_rl = np.random.default_rng(1)
+    dense_rl = gen_random_dense_sparse(rng_rl, 2048, 2048, density=0.05)
+    X_rl = torch.from_numpy(gen_matrix_random(rng_rl, 2048, 32)).to(dev)
+    A_rl = CSR.fromdense(dense_rl, device=dev)
+    P_rl = s4_pack("spmm_csr/rowlane bench pack_sell_rowlane",
+                   lambda: rlmod.pack_sell_rowlane(A_rl))
+    part_xl = s4_pack("XL partition_rowlane(1 rank, group 32)",
+                      lambda: par.partition_rowlane(A_xl, 1))
+    part_xl = dataclasses.replace(part_xl, **{
+        f: getattr(part_xl, f).to(dev) for f in part_xl._data_fields})
+    P_rlx = drl.local_sell(part_xl, part_xl)
+    P_rlx16 = dataclasses.replace(P_rlx, vals=P_rlx.vals.to(torch.bfloat16))
+    for label, P_c in (("bench", P_rl), ("XL", P_rlx)):
+        emit({"phase": "pack", "pack": f"rowlane {label} planes",
+              "n_slabs": P_c.n_slabs, "group": P_c.group,
+              "fill_rate": P_c.fill_rate if label == "bench"
+              else A_xl.nnz / P_c.vals.numel(),
+              "plane_bytes": container_bytes(P_c)})
+    sp_rl = A_rl.to_scipy()
+    s7_cases = []
+    for case, P_c, sp_c, X_c, bf in [
+            ("bench n=2048 d=0.05 k=32", P_rl, sp_rl, X_rl, False),
+            ("XL k=32 (partition_rowlane, 1 rank)", P_rlx, sp_xl, X_xl,
+             False),
+            ("XL k=32 bf16 values", P_rlx16, sp_xl, X_xl, True)]:
+        got = _spmm_rowlane_cuda(P_c, X_c)
+        want_plain = spmm_rowlane_reference(P_c, X_c)
+        torch.cuda.synchronize()
+        X64 = X_c.double().cpu().numpy()
+        oracle_rl = (Y_xl_want if sp_c is sp_xl and not bf else
+                     (bf16_rounded(sp_c) if bf else sp_c.astype(np.float64))
+                     @ X64)
+        errs[("spmm_rowlane", case)] = check("spmm_rowlane", case, got,
+                                             want_plain, oracle_rl, False)
+        s7_cases.append((case, P_c, X_c, sp_c, 2 if bf else 4))
+        del got, want_plain, oracle_rl
+    mark("check, slice 7")
+
     # -- 4. main path -------------------------------------------------------
     oracle = (c_np.astype(np.float64)
               + a_np.astype(np.float64) @ bt_dense.T.astype(np.float64))
@@ -1927,6 +2015,164 @@ def main() -> int:
     del y, data_g, A_g, X_g
     mark("main path")
 
+    # slice 7: the distribution layer (parallel/) at world size 1 under
+    # NCCL in this process.  Every collective is then a copy, so these
+    # paths time the local kernels and the host, not an exchange.  Each
+    # path against fp64, the launch counters set to 0 before it and read
+    # after: the XL CSR through dist_spmm_rowlane (row 8) and
+    # dist_spmv_rowlane (row 7), the plain dist_spmv/dist_spmm on row and
+    # column partitions (psum, psum_scatter), the dual-gather paths (rows
+    # 10/11, 13/14); the halo exchanges on a banded matrix (n = 2^20, 9
+    # diagonals); dist_cg on ilu_cg_xl's Poisson system with Jacobi and
+    # with block_ic0_precond (waves: rows 19/20), held to the bench's
+    # checks and to the single-device cg's iterations (max(3, 2 %): fp32
+    # sums in another order)
+    ddg = importlib.import_module(
+        "sparsematrix_tpu_torch.parallel.dist_dualgather")
+    rdv_dir = tempfile.mkdtemp(prefix="smt_dist_")
+    par.initialize_multihost(f"file://{rdv_dir}/store", 1, 0, device=dev)
+    mesh = par.make_mesh()
+    emit({"phase": "dist", "backend": dist.get_backend(),
+          "world_size": dist.get_world_size(), "device": str(mesh.device),
+          "host_staged": mesh.staged()})
+    part_r = par.shard_partitioned(s4_pack(
+        "XL partition_csr_rows(1)", lambda: par.partition_csr_rows(A_xl, 1)),
+        mesh)
+    part_c = par.shard_partitioned(s4_pack(
+        "XL partition_csr_cols(1)", lambda: par.partition_csr_cols(A_xl, 1)),
+        mesh)
+    part_dg_full = s4_pack("XL partition_dualgather(1, group 32)",
+                           lambda: par.partition_dualgather(A_xl, 1))
+    part_dg = par.shard_partitioned(part_dg_full, mesh)
+    sp_band, x_band_np = banded_matrix()
+    A_band = CSR.from_scipy(sp_band, device=dev)
+    part_ring = par.shard_partitioned(s4_pack(
+        "banded partition_csr_halo_ring(1, halo 4)",
+        lambda: par.partition_csr_halo_ring(A_band, 1, 4)), mesh)
+    part_var = par.shard_partitioned(s4_pack(
+        "banded partition_csr_halo_var(1)",
+        lambda: par.partition_csr_halo_var(A_band, 1)), mesh)
+    y_band_want = sp_band.astype(np.float64) @ x_band_np.astype(np.float64)
+    xb_xl = par.shard_vector(x_xl, mesh)  # one rank: the whole vector
+    Xb_xl = par.shard_vector(X_xl, mesh)
+    xb_band = par.shard_vector(torch.from_numpy(x_band_np), mesh)
+    s7_paths = {}
+    for name, run, want, expect in [
+            ("dist_spmm_rowlane XL k=32",
+             lambda: par.dist_spmm_rowlane(part_xl, Xb_xl, mesh), Y_xl_want,
+             ("spmm_rowlane",)),
+            ("dist_spmv_rowlane XL",
+             lambda: par.dist_spmv_rowlane(part_xl, xb_xl, mesh), y_xl_want,
+             ("spmv_rowlane",)),
+            ("dist_spmv rows XL", lambda: par.dist_spmv(part_r, xb_xl, mesh),
+             y_xl_want, ()),
+            ("dist_spmm rows XL k=32",
+             lambda: par.dist_spmm(part_r, Xb_xl, mesh), Y_xl_want, ()),
+            ("dist_spmv cols psum XL",
+             lambda: par.dist_spmv(part_c, xb_xl, mesh), y_xl_want, ()),
+            ("dist_spmv cols psum_scatter XL",
+             lambda: par.dist_spmv(part_c, xb_xl, mesh,
+                                   reduce="psum_scatter"), y_xl_want, ()),
+            ("dist_spmm cols psum XL k=32",
+             lambda: par.dist_spmm(part_c, Xb_xl, mesh), Y_xl_want, ()),
+            ("dist_spmm cols psum_scatter XL k=32",
+             lambda: par.dist_spmm(part_c, Xb_xl, mesh,
+                                   reduce="psum_scatter"), Y_xl_want, ()),
+            ("dist_spmv_dualgather XL",
+             lambda: par.dist_spmv_dualgather(part_dg, xb_xl, mesh),
+             y_xl_want, ("spmv_dualgather",)),
+            ("dist_spmm_dualgather XL k=32",
+             lambda: par.dist_spmm_dualgather(part_dg, Xb_xl, mesh),
+             Y_xl_want, ("spmm_dualgather",)),
+            ("dist_spmv_halo_ring banded n=2^20",
+             lambda: par.dist_spmv_halo_ring(part_ring, xb_band, mesh),
+             y_band_want, ()),
+            ("dist_spmv_halo_var banded n=2^20 (ragged)",
+             lambda: par.dist_spmv_halo_var(part_var, xb_band, mesh),
+             y_band_want, ())]:
+        y, seconds, counts, launched = s4_run(name, run, (expect,) if expect
+                                              else ())
+        y64 = y.double().cpu().numpy()[: want.shape[0]]
+        ok = (launched and y64.shape == want.shape
+              and bool(np.isfinite(y64).all()) and relative_check(y64, want))
+        emit({"phase": "main_path", "path": name, "world_size": 1,
+              "seconds": seconds, "launches": counts, "oracle_check": ok,
+              "ok": ok})
+        if not ok:
+            failures.append(f"main path {name}")
+        s7_paths[name] = run
+        del y
+    part_po = par.shard_partitioned(par.partition_csr_rows(A_po, 1), mesh)
+    M_blk = s4_pack("ilu_cg_xl block_ic0_precond(1 rank, waves)",
+                    lambda: par.block_ic0_precond(A_po, 1, mesh=mesh))
+    s7_cg = {}
+    for label, precond, expect, ref in [
+            ("jacobi", "jacobi", (), ("ilu_cg_xl", "plain")),
+            ("block_ic0 waves", M_blk, (("trisolve_chain", "trisolve_binv"),),
+             ("ilu_cg_xl", "ic0-waves"))]:
+        res, seconds, counts, launched = s4_run(
+            f"dist_cg {label}", lambda precond=precond: par.dist_cg(
+                part_po, b_pob, mesh, precond=precond, tol=1e-5,
+                maxiter=6000), expect)
+        true_res = float(np.linalg.norm(
+            po_sp @ res.x.double().cpu().numpy() - b_pob_np))
+        ref_iters = cg_cells[ref][4]
+        reached = (float(res.residual) <= 1e-5 * bn_pob * 1.001
+                   and res.iters < 6000)
+        ok = (reached and true_res <= 10 * 1e-5 * bn_pob and launched
+              and abs(res.iters - ref_iters) <= max(3, 0.02 * ref_iters))
+        emit({"phase": "main_path", "path": f"dist_cg ilu_cg_xl {label}",
+              "world_size": 1, "iters_to_tol": res.iters,
+              "single_device_cg_iters": ref_iters, "reached_tol": reached,
+              "true_rel_residual": true_res / bn_pob, "seconds": seconds,
+              "launches": counts, "ok": ok})
+        if not ok:
+            failures.append(f"main path dist_cg {label}")
+        s7_cg[label] = (precond, res.iters)
+        del res
+    mark("main path, slice 7 (world size 1)")
+
+    # the multi-rank phase: tests/_torch_dist_ranks.py on 2 and on 4 gloo
+    # ranks sharing cuda:0 (NCCL refuses two ranks on one card; gloo's
+    # collectives stage through the host, the compute stays on the card),
+    # both spawns at once: every dist_* of the slice on small fixtures
+    # (the halo exchanges, psum_scatter, a 2 × (n/2) mesh, dist_cg with
+    # the block preconditioners) against fp64, and the kernels each rank
+    # launched
+    spec = importlib.util.spec_from_file_location(
+        "_torch_dist_ranks",
+        Path(__file__).resolve().parent / "tests" / "_torch_dist_ranks.py")
+    ranks_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks_mod)
+    want_kernels = (("spmm_rowlane",), ("spmv_rowlane",),
+                    ("spmv_dualgather",), ("spmm_dualgather",),
+                    ("trisolve_chain", "trisolve_binv"))
+    with ThreadPoolExecutor(2) as pool:
+        futures = {w: pool.submit(ranks_mod.spawn, w, Path(tempfile.mkdtemp(
+            prefix=f"smt_ranks{w}_")), "cuda", None, 400) for w in (2, 4)}
+        for w, fut in futures.items():
+            try:
+                _, rep = fut.result()
+            except RuntimeError as e:
+                emit({"phase": "main_path", "path": f"gloo x{w} on cuda:0",
+                      "error": str(e)[-2000:], "ok": False})
+                failures.append(f"multi-rank gloo x{w}")
+                continue
+            launched = all(any(rep["launches"].get(kn, 0) > 0 for kn in alt)
+                           for alt in want_kernels)
+            # one card: gloo, its collectives staged through the host
+            ok = (launched and rep["staged"] == (rep["backend"] == "gloo")
+                  and all(c["ok"] for c in rep["cases"].values()))
+            emit({"phase": "main_path", "path": f"gloo x{w} on cuda:0",
+                  "world_size": w, "device": rep["device"],
+                  "backend": rep["backend"], "host_staged": rep["staged"],
+                  "seconds": rep["seconds"],
+                  "cases": rep["cases"], "launches": rep["launches"],
+                  "ok": ok})
+            if not ok:
+                failures.append(f"multi-rank gloo x{w}")
+    mark("main path, slice 7 (gloo ranks)")
+
     for kn, v in main_launches.items():
         if v == 0:
             failures.append(f"kernel {kn} was not launched on the main path")
@@ -2351,7 +2597,55 @@ def main() -> int:
         emit({"phase": "e2e", "path": label, "per_iter_device_ms": dms,
               "per_iter_wall_ms": wms, "iters_to_tol": iters,
               "ms_to_tol": wms * iters, "device_ms_to_tol": dms * iters})
-    mark("timings")
+    mark("timings, slices 1-6")
+
+    # slice 7: row 8 beside its bound, its plain version and cuSPARSE
+    # (torch.sparse.mm of the same CSR); then the world-size-1 dist paths
+    # end to end (device and wall), each beside its local kernel alone
+    # where it has one (the rest of the device time is the NCCL copy and
+    # the slicing), and dist_cg's iteration
+    s7_rows = {}
+    for case, P_c, X_c, sp_c, vb in s7_cases:
+        flops, nbytes = sparse_work(sp_c, X_c.shape[1], vb)
+        bms, by = bound(flops, nbytes)
+        if id(sp_c) not in yardsticks:
+            yardsticks[id(sp_c)] = cusparse(sp_c)
+        S = yardsticks[id(sp_c)]
+        row = {"kernel": "spmm_rowlane", "case": case,
+               "ms": dev_ms(lambda: _spmm_rowlane_cuda(P_c, X_c)),
+               "plain_ms": dev_ms(lambda: spmm_rowlane_reference(P_c, X_c)),
+               "library_ms": dev_ms(lambda: S @ X_c),
+               "library": "cuSPARSE SpMM (torch.sparse.mm)",
+               "launches": main_launches["spmm_rowlane"], "bound_ms": bms,
+               "bound_by": by, "flops": flops, "bytes": nbytes,
+               "plane_bytes": container_bytes(P_c), "n_slabs": P_c.n_slabs}
+        emit({"phase": "timing", **row})
+        s7_rows[case] = row
+    dg_local = ddg.local_dg(part_dg_full, part_dg)
+    local_kernels = {
+        "dist_spmm_rowlane XL k=32": lambda: _spmm_rowlane_cuda(P_rlx, X_xl),
+        "dist_spmv_rowlane XL": lambda: rlmod.spmv_sell_rowlane(P_rlx, x_xl),
+        "dist_spmv_dualgather XL":
+            lambda: dgmod._spmv_dualgather_cuda(dg_local, x_xl),
+        "dist_spmm_dualgather XL k=32":
+            lambda: _spmm_dualgather_cuda(dg_local, X_xl)}
+    for name, run in s7_paths.items():
+        row = {"phase": "e2e", "path": name, "world_size": 1,
+               "wall_ms": wall_ms(run), "device_ms": dev_ms(run)}
+        if name in local_kernels:
+            row["local_kernel_ms"] = dev_ms(local_kernels[name])
+            row["local_share"] = row["local_kernel_ms"] / row["device_ms"]
+        emit(row)
+    for label, (precond, iters) in s7_cg.items():
+        run = (lambda precond=precond: par.dist_cg(
+            part_po, b_pob, mesh, precond=precond, tol=0.0, maxiter=25))
+        dms, wms = dev_ms(run) / 25, wall_ms(run) / 25
+        emit({"phase": "e2e", "path": f"dist_cg ilu_cg_xl {label}",
+              "world_size": 1, "per_iter_device_ms": dms,
+              "per_iter_wall_ms": wms, "iters_to_tol": iters,
+              "ms_to_tol": wms * iters, "device_ms_to_tol": dms * iters})
+    dist.destroy_process_group()
+    mark("timings, slice 7")
 
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -2453,6 +2747,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": case})
+    case = "XL k=32 (partition_rowlane, 1 rank)"
+    row = s7_rows[case]
+    kernels.append({
+        "name": "spmm_rowlane", "route": "cuda",
+        "source": "sparsematrix_tpu_torch/csrc/spmm_rowlane.cu",
+        "replaces": "sparsematrix_tpu/kernels/spmm_rowlane.py:71",
+        "launches": main_launches["spmm_rowlane"],
+        "max_abs_err": errs[("spmm_rowlane", case)], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "case": case})
     for name, case in [("spmm_bsr", "(128,128) n=16384 k=128"),
                        ("spmm_bsr_panel", "XL (8,8) k=128")]:
         row = s6_rows[(name, case)]

@@ -7,6 +7,7 @@ from .bsr import (BSRPanels, pack_bsr_panels, spmm_bsr,
 from .codebook import codebook_matmul, codebook_spmm, codebook_spmm_reference
 from .spmm_blocked_ell import spmm_blocked_ell, spmm_blocked_ell_reference
 from .spmm_dualgather import spmm_dualgather, spmm_dualgather_reference
+from .spmm_rowlane import spmm_rowlane, spmm_rowlane_reference
 from .spmv_dualgather import (DualGather, PooledDG, pack_dualgather,
                               spmv_dualgather, spmv_dualgather_reference)
 from .spmv_octet import (Octet, pack_octet, spmm_octet,
@@ -59,6 +60,8 @@ __all__ = [
     "pack_sell_rowlane",
     "spmv_sell_rowlane",
     "spmv_sell_rowlane_reference",
+    "spmm_rowlane",
+    "spmm_rowlane_reference",
     "SellSuperblock",
     "pack_superblock",
     "spmv_superblock",

@@ -1131,3 +1131,150 @@ def test_bsr_routes_on_card(dev):
     Xs = res["cuda"].x.double().cpu().numpy()
     assert np.all(np.linalg.norm(sp.astype(np.float64) @ Xs - Bn, axis=0)
                   <= 10 * 1e-5 * np.linalg.norm(Bn, axis=0))
+
+
+# -- slice 7: the row-lane SpMM (row 8) and the distribution layer --------
+
+def _rowlane_mm_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "untouched":  # the middle row tile holds no entry
+        dense = gen_random_dense_sparse(rng, 300, 1100, density=0.03)
+        dense[128:256] = 0
+    elif name == "wide":
+        dense = gen_random_dense_sparse(rng, 130, 5000, density=0.03)
+    else:
+        dense = gen_random_dense_sparse(rng, 96, 1024, density=0.05)
+    return dense
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 33, 70])
+@pytest.mark.parametrize("name", ["small", "wide", "untouched"])
+def test_rowlane_spmm_kernel(dev, name, k, vdt, xdt):
+    from sparsematrix_tpu_torch.kernels import (spmm_rowlane,
+                                                spmm_rowlane_reference)
+
+    dense = _rowlane_mm_case(name)
+    P = pack_sell_rowlane(CSR.fromdense(dense, device=dev), group=4,
+                          dtype=vdt)
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (dense.shape[1], k)).astype(np.float32)).to(dev, xdt)
+    _build.launch_counts.clear()
+    got = spmm_rowlane(P, X)
+    assert _build.launch_counts["spmm_rowlane"] == 1
+    assert_kernel_close(got, spmm_rowlane_reference(P, X))
+    if name == "untouched":
+        assert not bool(got[128:256].any())
+
+
+@pytest.fixture
+def nccl_world1(dev, tmp_path):
+    """A world of one rank on NCCL in this process."""
+    import torch.distributed as dist
+
+    from sparsematrix_tpu_torch.parallel import (initialize_multihost,
+                                                 make_mesh)
+
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0, device=dev)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_world1_on_card(dev, nccl_world1):
+    """Every product path of the layer at world size 1 under NCCL against
+    fp64, and the kernels each launched."""
+    import sparsematrix_tpu_torch.parallel as par
+
+    mesh = nccl_world1
+    assert not mesh.staged()
+    rng = np.random.default_rng(7)
+    dense = gen_random_dense_sparse(rng, 700, 1300, density=0.03)
+    A = CSR.fromdense(dense, device="cpu")
+    x = rng.standard_normal(1300).astype(np.float32)
+    X = rng.standard_normal((1300, 9)).astype(np.float32)
+    y64, Y64 = dense.astype(np.float64) @ x, dense.astype(np.float64) @ X
+    xd, Xd = torch.from_numpy(x).to(dev), torch.from_numpy(X).to(dev)
+    rows = par.shard_partitioned(par.partition_csr_rows(A, 1), mesh)
+    cols = par.shard_partitioned(par.partition_csr_cols(A, 1), mesh)
+    rl = par.shard_partitioned(par.partition_rowlane(A, 1, group=4), mesh)
+    dg = par.shard_partitioned(par.partition_dualgather(A, 1, group=4), mesh)
+    cases = [
+        (lambda: par.dist_spmv(rows, xd, mesh), y64, None),
+        (lambda: par.dist_spmm(cols, Xd, mesh, reduce="psum_scatter"), Y64,
+         None),
+        (lambda: par.dist_spmv_rowlane(rl, xd, mesh), y64, "spmv_rowlane"),
+        (lambda: par.dist_spmm_rowlane(rl, Xd, mesh), Y64, "spmm_rowlane"),
+        (lambda: par.dist_spmv_dualgather(dg, xd, mesh), y64,
+         "spmv_dualgather"),
+        (lambda: par.dist_spmm_dualgather(dg, Xd, mesh), Y64,
+         "spmm_dualgather")]
+    for run, want, kernel in cases:
+        _build.launch_counts.clear()
+        got = run().double().cpu().numpy()[: want.shape[0]]
+        assert relative_check(got, want)
+        if kernel is not None:
+            assert _build.launch_counts[kernel] > 0
+    band = np.zeros((512, 512), np.float32)
+    for off in range(-3, 4):
+        i = np.arange(max(0, -off), min(512, 512 - off))
+        band[i, i + off] = rng.uniform(-1000, 1000, i.size)
+    B = CSR.fromdense(band, device="cpu")
+    xb = torch.from_numpy(rng.standard_normal(512).astype(np.float32)).to(dev)
+    want = band.astype(np.float64) @ xb.double().cpu().numpy()
+    for part, fn in ((par.partition_csr_halo_ring(B, 1, 3),
+                      par.dist_spmv_halo_ring),
+                     (par.partition_csr_halo_var(B, 1),
+                      par.dist_spmv_halo_var)):
+        got = fn(par.shard_partitioned(part, mesh), xb, mesh)
+        assert relative_check(got.double().cpu().numpy(), want)
+
+
+def test_dist_cg_world1_on_card(dev, nccl_world1):
+    """dist_cg with the block IC(0) preconditioner (one block: the wave
+    kernels) reaches tol with the single-device cg's iterations (± 2)."""
+    import sparsematrix_tpu_torch.parallel as par
+    from sparsematrix_tpu_torch.ops import ic0_waves_plans, ic_apply
+    from sparsematrix_tpu_torch.solvers import cg
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    mesh = nccl_world1
+    n, sp = poisson2d(64 * 64)
+    A = CSR.from_scipy(sp.astype(np.float32).tocsr(), device=dev)
+    b_np = np.random.default_rng(8).standard_normal(n).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+    part = par.shard_partitioned(par.partition_csr_rows(A, 1), mesh)
+    M = par.block_ic0_precond(A, 1, mesh=mesh)
+    _build.launch_counts.clear()
+    res = par.dist_cg(part, b, mesh, precond=M, tol=1e-5, maxiter=2000)
+    assert (_build.launch_counts["trisolve_chain"]
+            + _build.launch_counts["trisolve_binv"]) > 0
+    plans = ic0_waves_plans(A)
+    ref = cg(A, b, tol=1e-5, maxiter=2000, M=lambda r: ic_apply(plans, r))
+    assert abs(res.iters - ref.iters) <= 2, (res.iters, ref.iters)
+    rel = np.linalg.norm(sp @ res.x.double().cpu().numpy() - b_np) / (
+        np.linalg.norm(b_np))
+    assert rel < 1e-4
+
+
+def test_dist_gloo_ranks_on_card(dev, tmp_path):
+    """Every dist_* of the slice on 2 ranks (the rank program of the CPU
+    tests with ``--device cuda``: gloo ranks sharing one card, or NCCL
+    where there is a card a rank) against fp64."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_dist_ranks",
+        pathlib.Path(__file__).resolve().parent / "_torch_dist_ranks.py")
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    _, rep = ranks.spawn(2, tmp_path, device="cuda", timeout=600)
+    # one card: gloo, staged through the host; a card a rank: NCCL
+    assert rep["staged"] == (rep["backend"] == "gloo")
+    assert rep["device"].startswith("cuda")
+    bad = {c: r for c, r in rep["cases"].items() if not r["ok"]}
+    assert not bad, bad
+    assert rep["launches"].get("spmm_rowlane", 0) > 0
