@@ -58,7 +58,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    slice 7: the row-lane SpMM (row 8) at the JAX bench's
    ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and on the XL
    CSR as ``partition_rowlane`` packs it for one rank (k = 32, fp32 and
-   bf16 values).
+   bf16 values).  Then slice 8: the stream copy (row 22) bit for bit
+   against ``x.clone()`` at 1, 3, 4097 elements, 128 MiB and 256 MiB,
+   each also as a view one element past a 16-byte boundary.
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
    4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
@@ -99,7 +101,13 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    ``block_ic0_precond`` (rows 19/20), its iterations against the
    single-device ``cg``'s; then ``tests/_torch_dist_ranks.py`` on 2 and on
    4 gloo ranks sharing the card (every ``dist_*`` of the slice on small
-   fixtures against fp64, with the kernels each rank launched).  Every
+   fixtures against fp64, with the kernels each rank launched); then
+   slice 8, the bench suite: ``bench.headline`` (the twin of
+   ``bench.py``, its JSON line printed) and the suite's CLI on each group
+   of ``BENCH_GROUPS`` at its default size, failing on a failed group, a
+   dropped variant or row, a false check, a SoL above 105 % or a group
+   that did not launch the kernels ``BENCH_KERNELS`` names; the calibrate
+   rows against the spec sheet.  Every
    launch counter is set to 0 just before each path and read just after,
    and each kernel must have launched.  ``seconds`` lines give each
    phase's time.
@@ -128,7 +136,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    cuBLAS of the densified matrix; then the BSR paths end to end and
    block CG's and CG's iteration on the BSR operator.  For row 8 the
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
-   are timed end to end, each beside its local kernel alone.
+   are timed end to end, each beside its local kernel alone.  Row 22 at
+   128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
+   ``timed_ms``, ``wall_ms`` and the peaks come from the package
+   (``utils/timer.py``, ``utils/roofline.py``), so the bench suite and
+   this script time the same way.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -152,76 +164,45 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): non-tensor
-# fp32 FLOP/s, bf16 tensor-core FLOP/s and HBM3 bytes/s
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
+from sparsematrix_tpu_torch.utils import roofline
+from sparsematrix_tpu_torch.utils.roofline import (PEAK_BF16, PEAK_BYTES,
+                                                   PEAK_FP32)
+from sparsematrix_tpu_torch.utils.timer import (spin_cycles_per_s, timed_ms,
+                                                wall_ms)
 
-ITERS = 30
-WARMUP = 3
+
+# fp32 elements of the calibrate row's stream (bench/suite.py): 128 MiB
+MIB128 = 128 * 1024 * 1024 // 4
+# the bench groups the bench phase runs at their default (card) sizes; the
+# XL groups repeat paths the earlier phases drive at full size
+BENCH_GROUPS = ("calibrate", "csr_spmv", "csr_spmv_large", "spmm_csr",
+                "spmm_bell", "spmm_banded", "bsr", "spmv_clustered",
+                "weak_scaling", "spgemm", "trisolve", "ilu_cg",
+                "codebook_gemm")
+# the kernels each bench group must launch (from the launch counters of
+# the first run on the card, checked against PERF.md's kernel table)
+BENCH_KERNELS = {
+    "calibrate": ("stream_copy",),
+    "csr_spmv": ("spmv_dualgather_sb", "spmv_sell", "spmv_sell_rowpure",
+                 "spmv_rowlane"),
+    "csr_spmv_large": ("spmv_rowlane",),
+    "spmm_csr": ("spmm_rowlane", "spmm_dualgather"),
+    "spmm_bell": ("spmm_blocked_ell",),
+    "spmm_banded": ("spmm_blocked_ell",),
+    "bsr": ("spmv_dualgather_sb", "spmm_bsr_panel"),
+    "spmv_clustered": ("spmv_octet", "spmv_dualgather_sb"),
+    "weak_scaling": (),
+    "spgemm": ("spmv_octet", "window_permute"),
+    "trisolve": ("spmv_rowlane", "trisolve_fused", "trisolve_binv",
+                 "trisolve_chain", "trisolve_chain_mm"),
+    "ilu_cg": ("spmv_dualgather_sb", "spmv_rowlane", "trisolve_chain",
+               "trisolve_fused"),
+    "codebook_gemm": ("codebook_spmm",),
+}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def timed_ms(fn, flush: torch.Tensor, spin_rate: float) -> float:
-    """Median device time of one call of ``fn``, with the L2 flushed before
-    it.  Each timed call starts from a drained queue behind a spin kernel
-    twice as long as the host took to issue one call in the warm-up, so
-    the events see the device's time and not the host's cost of issuing
-    the call (``wall_ms`` measures that).  A call of more launches than
-    the stream's queue holds blocks the host until the card frees slots:
-    the card is busy then, so the events still see no gap."""
-    issue = []
-    for _ in range(WARMUP):
-        torch.cuda.synchronize()
-        flush.zero_()
-        t0 = time.perf_counter()
-        fn()
-        issue.append(time.perf_counter() - t0)
-    spin = int((2.0 * max(issue) + 1e-4) * spin_rate)
-    times = []
-    for _ in range(ITERS):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(spin)
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def wall_ms(fn) -> float:
-    """Median latency of one call as its caller sees it: issued, then
-    waited for (host clock, warm L2)."""
-    for _ in range(WARMUP):
-        fn()
-    times = []
-    for _ in range(ITERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times)) * 1e3
-
-
-def spin_cycles_per_s() -> float:
-    """Clock cycles per second of ``torch.cuda._sleep`` on this card."""
-    torch.cuda._sleep(1_000_000)  # warm-up
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    torch.cuda.synchronize()
-    return 20_000_000 / (start.elapsed_time(end) * 1e-3)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32):
@@ -577,6 +558,8 @@ def main() -> int:
         _spmm_blocked_ell_cuda, spmm_blocked_ell_reference)
     from sparsematrix_tpu_torch.kernels.spmm_dualgather import (
         _spmm_dualgather_cuda, spmm_dualgather_reference)
+    from sparsematrix_tpu_torch.kernels.stream_copy import (
+        _stream_copy_cuda, stream_copy_reference)
     from sparsematrix_tpu_torch.kernels.window_permute import (
         _window_permute_cuda, window_permute_reference)
     from sparsematrix_tpu_torch.ops import (ClosPermutePlan, add_mat_mat,
@@ -1435,6 +1418,27 @@ def main() -> int:
         del got, want_plain, oracle_rl
     mark("check, slice 7")
 
+    # slice 8: row 22 (the stream copy) against its plain version, bit for
+    # bit, at odd lengths, the calibrate row's 128 MiB and the cross-check
+    # probe's 256 MiB, each also as a view that starts one element past a
+    # 16-byte boundary
+    for n_el in (1, 3, 4097, MIB128, 2 * MIB128):
+        base = torch.randn(n_el + 1, device=dev)
+        for label, x_c in (("aligned", base[:n_el]), ("view at +1", base[1:])):
+            got = _stream_copy_cuda(x_c)
+            want_plain = stream_copy_reference(x_c)
+            torch.cuda.synchronize()
+            eq = bool(torch.equal(got, want_plain))
+            err = float((got - want_plain).abs().max())
+            case = f"n={n_el} {label}"
+            errs[("stream_copy", case)] = err
+            emit({"phase": "check", "kernel": "stream_copy", "case": case,
+                  "max_abs_err": err, "bit_equal": eq, "ok": eq})
+            if not eq:
+                failures.append(f"check stream_copy {case}")
+        del base, got, want_plain
+    mark("check, slice 8")
+
     # -- 4. main path -------------------------------------------------------
     oracle = (c_np.astype(np.float64)
               + a_np.astype(np.float64) @ bt_dense.T.astype(np.float64))
@@ -2173,6 +2177,76 @@ def main() -> int:
                 failures.append(f"multi-rank gloo x{w}")
     mark("main path, slice 7 (gloo ranks)")
 
+    # slice 8, the bench suite: the headline (bench.py's twin), then the
+    # suite's CLI on each bench-size group at its default size, every
+    # launch counter set to 0 just before a group and read just after.
+    # The run fails on a failed group, a dropped variant or row, a check
+    # that is false, a SoL above 105 % (a byte model that can be beaten is
+    # a timing artifact) or a group that did not launch its kernels.
+    from sparsematrix_tpu_torch.bench import cli as bench_cli
+    from sparsematrix_tpu_torch.bench.headline import headline
+    from sparsematrix_tpu_torch.bench.suite import (REF_K, REF_M, REF_N,
+                                                    registry as bench_reg)
+
+    _build.launch_counts.clear()
+    t = time.perf_counter()
+    head = headline(device=dev)
+    torch.cuda.synchronize()
+    counts = {kn: v for kn, v in _build.launch_counts.items() if v}
+    for kn, v in counts.items():
+        main_launches[kn] += v
+    emit({"phase": "bench", "group": "headline", "line": head,
+          "seconds": time.perf_counter() - t, "launches": counts})
+    if not (head["checked"] and counts.get("codebook_spmm")):
+        failures.append("bench headline")
+    bench_rows = {}
+    for group in BENCH_GROUPS:
+        n_rows, n_failed = len(bench_reg.rows), len(bench_reg.failed)
+        n_dropped = len(bench_reg.dropped)
+        _build.launch_counts.clear()
+        t = time.perf_counter()
+        bench_cli.main([str(REF_M), str(REF_N), str(REF_K), "1",
+                        f"^{group}$"], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = {kn: v for kn, v in _build.launch_counts.items() if v}
+        for kn, v in counts.items():
+            main_launches[kn] += v
+        rows = bench_reg.rows[n_rows:]
+        problems = [f"failed {x}" for x in bench_reg.failed[n_failed:]]
+        problems += [f"dropped {x}" for x in bench_reg.dropped[n_dropped:]]
+        problems += [f"check false {r.name} {r.shape}" for r in rows
+                     if r.checked is False]
+        problems += [f"SoL {r.sol_frac:.3f} {r.name} {r.shape}" for r in rows
+                     if r.sol_frac is not None and r.sol_frac > 1.05]
+        problems += [f"{kn} not launched" for kn in BENCH_KERNELS[group]
+                     if not counts.get(kn)]
+        if not rows:
+            problems.append("no rows")
+        emit({"phase": "bench", "group": group, "seconds": seconds,
+              "launches": counts, "problems": problems,
+              "rows": [{"name": r.name, "shape": r.shape,
+                        "min_ms": r.result.min_ms,
+                        "median_ms": r.result.extras.get("median_ms"),
+                        "sol_frac": r.sol_frac, "checked": r.checked,
+                        **{kx: vx for kx, vx in r.extras.items()
+                           if kx in ("tflops", "gb_per_s", "iters_to_tol",
+                                     "per_iter_ms", "vs_baseline")}}
+                       for r in rows]})
+        for r in rows:
+            bench_rows[r.name] = r
+        if problems:
+            failures.append(f"bench {group}: {problems}")
+    chip = roofline.active_chip()
+    emit({"phase": "bench", "group": "calibrate vs spec",
+          "matmul_fp32_tflops": bench_rows["calibrate/matmul-fp32"].extras[
+              "tflops"], "fp32_spec_tflops": chip.fp32_tflops,
+          "matmul_bf16_tflops": bench_rows["calibrate/matmul-bf16"].extras[
+              "tflops"], "bf16_spec_tflops": chip.bf16_tflops,
+          "hbm_stream_gb_per_s": bench_rows["calibrate/hbm-stream"].extras[
+              "gb_per_s"], "hbm_spec_gb_per_s": chip.hbm_gbps})
+    mark("main path, slice 8 (bench suite)")
+
     for kn, v in main_launches.items():
         if v == 0:
             failures.append(f"kernel {kn} was not launched on the main path")
@@ -2647,6 +2721,33 @@ def main() -> int:
     dist.destroy_process_group()
     mark("timings, slice 7")
 
+    # slice 8: row 22 at the calibrate row's 128 MiB and the cross-check
+    # probe's 256 MiB (the timer's linearity), beside its plain version
+    # (``x.clone()``) and the library's device copy (``y.copy_(x)`` into a
+    # preallocated y, a cudaMemcpyAsync); the bound is each byte read once
+    # and written once at HBM's rate
+    s8_rows = {}
+    for n_el in (MIB128, 2 * MIB128):
+        x_s = torch.randn(n_el, device=dev)
+        y_s = torch.empty_like(x_s)
+        bms, by = bound(0.0, 8.0 * n_el)
+        case = f"{n_el * 4 >> 20} MiB fp32"
+        row = {"kernel": "stream_copy", "case": case,
+               "ms": dev_ms(lambda x_s=x_s: _stream_copy_cuda(x_s)),
+               "plain_ms": dev_ms(lambda x_s=x_s: stream_copy_reference(x_s)),
+               "library_ms": dev_ms(lambda x_s=x_s, y_s=y_s: y_s.copy_(x_s)),
+               "library": "y.copy_(x) (cudaMemcpyAsync)",
+               "launches": main_launches["stream_copy"], "bound_ms": bms,
+               "bound_by": by, "flops": 0.0, "bytes": 8.0 * n_el}
+        row["gb_per_s"] = 8.0 * n_el / (row["ms"] * 1e-3) / 1e9
+        emit({"phase": "timing", **row})
+        s8_rows[case] = row
+        del x_s, y_s
+    emit({"phase": "timing", "kernel": "stream_copy",
+          "case": "256 MiB / 128 MiB time ratio",
+          "ratio": s8_rows["256 MiB fp32"]["ms"] / s8_rows["128 MiB fp32"]["ms"]})
+    mark("timings, slice 8")
+
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -2771,6 +2872,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": case})
+    case = "128 MiB fp32"
+    row = s8_rows[case]
+    kernels.append({
+        "name": "stream_copy", "route": "cuda",
+        "source": "sparsematrix_tpu_torch/csrc/stream_copy.cu",
+        "replaces": "sparsematrix_tpu/bench/suite.py:112",
+        "launches": main_launches["stream_copy"],
+        "max_abs_err": errs[("stream_copy", f"n={MIB128} aligned")],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "case": case})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

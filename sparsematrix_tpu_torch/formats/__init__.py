@@ -12,6 +12,7 @@ from .csr import CSC, CSR
 from .dense import Dense
 from .ell import ELL, BlockedELL
 from .interop import from_torch, to_torch
+from .quantdense import QuantDense
 from .stripdense import StripDense
 from .validate import validate
 
@@ -29,6 +30,7 @@ __all__ = [
     "CodebookCSR",
     "CodebookDense",
     "Dense",
+    "QuantDense",
     "StripDense",
     "coo_to_csr",
     "csr_to_coo",

@@ -13,7 +13,9 @@ Triangular-solve plans carry the same way: a ``TriWavesPlan``'s or
 ``SellRowLane``) first; a string static (``mode``) stays a string.  A
 ``BSR`` whose ``block_row_ids`` is None carries as None.  bf16 arrays
 (numpy's ``bfloat16`` extension type) become ``torch.bfloat16`` tensors
-bit for bit.  Nothing of the JAX package is imported.
+bit for bit.  A ``QuantDense`` and a ``QuantizedCodebookDense`` carry
+their int8 planes and fp32 scales as they are (a 0-d ``scale`` stays
+0-d).  Nothing of the JAX package is imported.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .coo import COO
 from .csr import CSR
 from .dense import Dense
 from .ell import ELL, BlockedELL
+from .quantdense import QuantDense
 from .stripdense import StripDense
 
 __all__ = ["from_numpy_fields", "kinds"]
@@ -51,6 +54,7 @@ def kinds() -> dict:
     from ..kernels.trisolve_fused import TriFusedPlan
     from ..kernels.trisolve_waves import TriWavesPlan
     from ..ops.direct import SpluSolver
+    from ..ops.quantized import QuantizedCodebookDense
     from ..ops.spgemm import SpGEMMPacked, SpGEMMPlan
     from ..ops.trisolve import TriFixPlan, TriLevelPlan, TriSolvePlan
 
@@ -61,7 +65,7 @@ def kinds() -> dict:
                         SellSpmv, SellRowPure, PermutePlan, ClosPermutePlan,
                         SkewSpmv, SpGEMMPlan, SpGEMMPacked, TriSolvePlan,
                         TriFixPlan, TriLevelPlan, TriFusedPlan, TriWavesPlan,
-                        SpluSolver)}
+                        SpluSolver, QuantDense, QuantizedCodebookDense)}
 
 
 def _tensor(arr, dev):

@@ -93,6 +93,14 @@ class BlockedELL(SparseFormat):
     nnz: int = static_field()  # scalar nnz pre-blocking
     block_shape: Tuple[int, int] = static_field()
 
+    @property
+    def num_block_rows(self) -> int:
+        return self.block_cols.shape[0]
+
+    @property
+    def max_blocks_per_row(self) -> int:
+        return self.block_cols.shape[1]
+
     @classmethod
     def fromdense(cls, dense, block_shape: Tuple[int, int] = (8, 128),
                   max_blocks_per_row: int | None = None,

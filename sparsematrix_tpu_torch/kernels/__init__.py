@@ -18,6 +18,7 @@ from .spmv_rowlane import (SellRowLane, pack_sell_rowlane, spmv_sell_rowlane,
 from .spmv_sell import (SellRowPure, SellSpmv, pack_sell, pack_sell_rowpure,
                         spmv_sell, spmv_sell_reference, spmv_sell_rowpure,
                         spmv_sell_rowpure_reference)
+from .stream_copy import stream_copy, stream_copy_reference
 from .spmv_superblock import (SellSuperblock, pack_superblock,
                               spmv_superblock, spmv_superblock_reference)
 from .trisolve_fused import (TriFusedPlan, trisolve_fused_apply,
@@ -68,6 +69,8 @@ __all__ = [
     "spmv_superblock_reference",
     "window_permute",
     "window_permute_reference",
+    "stream_copy",
+    "stream_copy_reference",
     "TriFusedPlan",
     "trisolve_fused_plan",
     "trisolve_fused_apply",

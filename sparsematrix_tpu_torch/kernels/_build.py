@@ -46,7 +46,7 @@ SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmm_dualgather", "window_permute", "spmv_octet", "spmv_rowlane",
            "spmv_superblock", "trisolve_waves", "trisolve_fused",
            "spmm_octet", "spmv_pooled", "spmv_sell", "spmm_bsr",
-           "spmm_rowlane")
+           "spmm_rowlane", "stream_copy")
 # the launch counters: one per kernel (a source may hold several)
 KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb",
@@ -54,7 +54,7 @@ KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "trisolve_fused", "trisolve_chain", "trisolve_binv",
            "trisolve_chain_mm", "spmm_octet", "spmv_pooled", "spmv_sell",
            "spmv_sell_rowpure", "spmm_bsr", "spmm_bsr_panel",
-           "spmm_rowlane")
+           "spmm_rowlane", "stream_copy")
 # the host sources (native/<name>.cc)
 HOST_SOURCES = ("assign", "rowlane", "octet", "color", "factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

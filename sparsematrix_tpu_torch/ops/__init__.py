@@ -1,5 +1,6 @@
 """Sparse ops: SpMV, SpMM, SpGEMM, planned permutations, triangular solves
-with ILU(0)/IC(0) and SuperLU, the reference's AddMatMat, transposed
+with ILU(0)/IC(0) and SuperLU, the reference's AddMatMat (and its
+quantized int8/int16 twins), transposed
 products, sparse addition and elementwise utilities."""
 from ..kernels.trisolve_fused import (TriFusedPlan, trisolve_fused_apply,
                                       trisolve_fused_apply_batched,
@@ -19,6 +20,8 @@ from .ilu import (ilu0, ilu0_fixpoint_plans, ilu0_fused_plans,
                   ilu0_level_plans, ilu0_plans, ilu0_waves_plans, ilu_apply)
 from .permute import (PermutePlan, apply_permutation, plan_gather_permutation,
                       plan_permutation_auto)
+from .quantized import (QuantizedCodebookDense, add_mat_mat_int8,
+                        add_mat_mat_int16, int8_matmul, quantize_codebook)
 from .permute_clos import (ClosPermutePlan, apply_clos_permutation,
                            plan_clos_permutation)
 from .skew import SkewSpmv, pack_skew, skew_stats, spmm_skew, spmv_skew
@@ -35,7 +38,8 @@ from .trisolve import (TriFixPlan, TriLevelPlan, TriSolvePlan, trisolve,
                        trisolve_fixpoint_plan, trisolve_level_apply,
                        trisolve_level_plan, trisolve_plan)
 
-__all__ = ["add_mat_mat", "spmm", "spmm_densify", "spmm_reference",
+__all__ = ["add_mat_mat", "QuantizedCodebookDense", "quantize_codebook",
+           "add_mat_mat_int8", "add_mat_mat_int16", "int8_matmul", "spmm", "spmm_densify", "spmm_reference",
            "spmm_right", "spmv_t", "spmm_t", "csr_transpose_device",
            "SparseAddPlan", "sparse_add", "sparse_add_apply",
            "sparse_add_plan", "scale", "axpy_same_pattern", "diagonal",

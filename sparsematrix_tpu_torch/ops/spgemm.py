@@ -142,12 +142,16 @@ def spgemm_apply(plan: SpGEMMPlan, a_data: torch.Tensor,
                row_ids=plan.c_row_ids, shape=plan.shape, nnz=plan.c_nnz)
 
 
-# The JAX package's density-adaptive routing constants, kept verbatim:
-# they were measured on the TPU (the dense product at ~23 TFLOP/s, the
-# packed pair program at ~0.4 Gpairs/s), not on this port's card, and are
-# not retuned here.
-_DENSE_FLOPS_PER_S = 23e12
-_PACKED_PAIRS_PER_S = 0.4e9
+# The density-adaptive routing rates, measured on an NVIDIA H100 80GB HBM3
+# at 700 W by the bench suite (``python -m sparsematrix_tpu_torch.bench
+# 117 1023 2047 1 spgemm``): the dense product from the
+# ``spgemm_crossover/densify-mxu`` rows (2n³ over the device time: 44.7
+# TFLOP/s at n = 4096, 50.4 at 8192; the lower kept), the pair program
+# from the packed rows (``spgemm_crossover/packed`` 6.24 Gpairs/s at
+# n = 4096 and 8.56 at 8192, ``spgemm/numeric-packed`` 8.84; the lowest
+# kept).
+_DENSE_FLOPS_PER_S = 44.7e12
+_PACKED_PAIRS_PER_S = 6.24e9
 _DENSIFY_MAX_DENSE_ELEMS = 512 * 1024 * 1024  # 2 GB fp32 product cap
 
 
@@ -163,8 +167,8 @@ def spgemm(A: CSR, B: CSR, method: str = "auto",
            output: str = "csr") -> CSR:
     """One-shot SpGEMM (symbolic on the host, numeric on A's device).
 
-    method: "auto" (the dense product below the JAX package's measured
-    crossover, the pair program above), "sparse" or "densify".
+    method: "auto" (the dense product below the crossover measured on the
+    card, the pair program above), "sparse" or "densify".
     output: "csr" (C as CSR) or "csc" (C^T as CSR, through the packed
     clustered pair program, whose kernel output is in that order).
     """

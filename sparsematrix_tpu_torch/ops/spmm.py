@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
-                       CodebookDense, Dense, StripDense)
+                       CodebookDense, Dense, QuantDense, StripDense)
 from ..formats.base import cached_on
 from ..kernels.bsr import (small_blocks, spmm_bsr, spmm_bsr_grouped_reference,
                            takes_kernel)
@@ -54,6 +54,7 @@ from ..kernels.spmv_octet import Octet, spmm_octet
 from ..kernels.spmv_rowlane import SellRowLane
 from ..kernels.spmv_sell import SellRowPure, SellSpmv
 from ..kernels.spmv_superblock import SellSuperblock
+from .quantized import int8_matmul
 from .skew import SkewSpmv, is_skewed, pack_skew, spmm_skew
 from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
 from .spmv import _maybe_strip
@@ -108,6 +109,17 @@ def _spmm_dense_plain(A: Dense, X):
     return _matmul(A.data, X)
 
 
+def _spmm_quantdense_plain(A: QuantDense, X):
+    # per-column symmetric quantization of X, int8 contraction with int32
+    # accumulate, rank-1 rescale (``_spmm_quantdense_jnp``)
+    colmax = X.abs().amax(dim=0)
+    t = torch.where(colmax > 0, colmax / 127.0,
+                    torch.ones_like(colmax)).float()
+    Xq = torch.clamp(torch.round(X / t[None, :]), -127, 127).to(torch.int8)
+    Yi = int8_matmul(A.data, Xq)
+    return (Yi.float() * A.scale[:, None] * t[None, :]).to(X.dtype)
+
+
 def _spmm_strip_plain(A: StripDense, X):
     # per strip, the X rows of its window, then one batched product
     Xg = X[A.window_index()]  # (n_strips, width, k)
@@ -124,6 +136,7 @@ _PLAIN_IMPLS = {
     CodebookCSR: _spmm_codebook_plain,
     CodebookDense: _spmm_codebook_dense_plain,
     Dense: _spmm_dense_plain,
+    QuantDense: _spmm_quantdense_plain,
     StripDense: _spmm_strip_plain,
 }
 
@@ -271,8 +284,9 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
             "(ROADMAP.md, Queue 1)")
     if method == "densify":
         return spmm_densify(A, X)
-    if type(A) is Dense:
-        # already materialized: its plain product is the fast path
+    if type(A) in (Dense, QuantDense):
+        # already materialized: its plain product (the bf16 plane, the
+        # int8 contraction) is the fast path; never re-densify
         return spmm_reference(A, X)
     if (method == "auto" and type(A) is BSR and _should_densify(A)
             and small_blocks(A)):

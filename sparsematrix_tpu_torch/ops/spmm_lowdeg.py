@@ -31,6 +31,11 @@ class SlicedEllMM:
     shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
     nnz: int = dataclasses.field(metadata={"static": True})
 
+    @property
+    def fill_rate(self) -> float:
+        pad = sum(int(v.numel()) for v in self.vals)
+        return self.nnz / max(pad, 1)
+
 
 def pack_sliced_ell(A: CSR, max_waste: float = 0.33,
                     max_segments: int = 8) -> SlicedEllMM:

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
-                       CodebookDense, Dense, StripDense, bsr_to_csr)
+                       CodebookDense, Dense, QuantDense, StripDense,
+                       bsr_to_csr)
 from ..formats.base import cached_on
 from ..kernels.bsr import small_blocks, spmm_bsr_grouped_reference
 from ..kernels.spmm_blocked_ell import spmm_blocked_ell_reference
@@ -95,6 +96,12 @@ def _spmv_dense_plain(A: Dense, x):
     return A.data.to(dt) @ x.to(dt)
 
 
+def _spmv_quantdense_plain(A: QuantDense, x):
+    from .spmm import _spmm_quantdense_plain
+
+    return _spmm_quantdense_plain(A, x[:, None])[:, 0]
+
+
 def _spmv_strip_plain(A: StripDense, x):
     # per strip, the x window at its first column, then one batched matvec
     xg = x[A.window_index()]  # (n_strips, width)
@@ -111,6 +118,7 @@ _PLAIN_IMPLS = {
     CodebookCSR: _spmv_codebook_plain,
     CodebookDense: _spmv_codebook_dense_plain,
     Dense: _spmv_dense_plain,
+    QuantDense: _spmv_quantdense_plain,
     StripDense: _spmv_strip_plain,
 }
 

@@ -1278,3 +1278,76 @@ def test_dist_gloo_ranks_on_card(dev, tmp_path):
     bad = {c: r for c, r in rep["cases"].items() if not r["ok"]}
     assert not bad, bad
     assert rep["launches"].get("spmm_rowlane", 0) > 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 4097, 65536 + 3,
+                               1 << 22])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_stream_copy_bit_equal(dev, n, offset):
+    """Row 22 against ``x.clone()``, bit for bit, at odd lengths and at
+    views that start 0-3 elements past a 16-byte boundary (the scalar
+    head, the float4 body and the scalar tail)."""
+    from sparsematrix_tpu_torch.kernels import stream_copy, stream_copy_reference
+
+    base = torch.randn(n + offset, device=dev)
+    base[0] = float("nan")  # NaN bits must survive the copy too
+    x = base[offset:]
+    before = _build.launch_counts["stream_copy"]
+    y = stream_copy(x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["stream_copy"] == before + 1
+    want = stream_copy_reference(x)
+    assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous()
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+
+
+def test_stream_copy_refuses_other_inputs(dev):
+    from sparsematrix_tpu_torch.kernels import stream_copy
+
+    with pytest.raises(ValueError):
+        stream_copy(torch.zeros(8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        stream_copy(torch.zeros((4, 4), device=dev).T)
+    assert stream_copy(torch.zeros(0, device=dev)).numel() == 0
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (8, 2047, 1023), (16, 96, 64),
+                                   (17, 2047, 33), (117, 2047, 1023)])
+def test_int8_matmul_padding_on_card(dev, m, k, n):
+    """``torch._int_mm`` wants more than 16 rows and k, n multiples of 8
+    on the card: the zero padding is exact."""
+    from sparsematrix_tpu_torch.ops.quantized import int8_matmul
+
+    g = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=g)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g)
+    got = int8_matmul(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().long(), a.long() @ b.long())
+
+
+def test_quantized_addmatmat_on_card(dev):
+    """The int8/int16 AddMatMat and the QuantDense product on the card
+    against the same calls on the CPU (exact integer products; the fp32
+    rescale may differ in the last bit)."""
+    from sparsematrix_tpu_torch import (QuantDense, add_mat_mat_int8,
+                                        add_mat_mat_int16, quantize_codebook)
+
+    rng = np.random.default_rng(4)
+    a = gen_matrix_random(rng, 117, 2047)
+    idx, table = gen_sparse_index_matrix(rng, 2047, 1023, density=0.25,
+                                         table_size=255)
+    q_dense = gen_random_dense_sparse(rng, 64, 2047, density=0.1)
+    for device in (dev, torch.device("cpu")):
+        b = quantize_codebook(CodebookDense.from_index_matrix(
+            idx, table, trans=True, device=device))
+        a_d = torch.from_numpy(a).to(device)
+        out = [add_mat_mat_int8(a_d, b).cpu(), add_mat_mat_int16(a_d, b).cpu()]
+        Q = QuantDense.fromdense(q_dense, device=device)
+        out.append(spmm(Q, a_d.T.contiguous()).cpu())
+        if device == dev:
+            on_card = out
+    for got, want in zip(on_card, out):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale

@@ -137,6 +137,16 @@ def test_cpu_calls_launch_no_kernel():
                      maxiter=2,
                      M=lambda R: smt.ic_apply(smt.ic0_waves_plans(P), R))
         smt.trisolve(smt.ilu0(P)[1], torch.ones(256), lower=False)
+    # slice 8: the stream copy, the quantized products, a bench group
+    from sparsematrix_tpu_torch.bench.suite import bench_codebook_gemm
+
+    smt.kernels.stream_copy(torch.ones(1000)[1:])
+    q = smt.quantize_codebook(cbd)
+    smt.add_mat_mat_int8(a, q)
+    smt.add_mat_mat_int16(a, q)
+    smt.spmm(smt.QuantDense.from_sparse(D), torch.ones((1024, 3)))
+    bench_codebook_gemm(device="cpu", ref_m=8, ref_n=16, ref_k=24,
+                        variants=("fused-pallas",))
     assert sum(_build.launch_counts.values()) == 0
 
 
@@ -160,4 +170,5 @@ def test_package_data_lists_every_native_source():
             "spmv_sell_rowpure", "spmm_bsr", "spmm_bsr_panel"} <= set(
                 _build.KERNELS)
     assert "spmm_bsr" in _build.SOURCES
+    assert "stream_copy" in _build.SOURCES and "stream_copy" in _build.KERNELS
     assert set(_build.HOST_SOURCES) == {p.stem for p in PKG.glob("native/*.cc")}

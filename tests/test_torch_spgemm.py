@@ -235,3 +235,33 @@ def test_carry_slice3_containers(monkeypatch):
                                with_transpose=True)
     assert jp.spill_packed is not None
     assert_same_container(_carry(jp), jp)
+
+
+AUTO_CASES = [(64, 0.3), (300, 0.02), (400, 0.005), (800, 0.002)]
+
+
+def _auto_picks_dense(A, B):
+    """``spgemm(method="auto")``'s choice, from its own constants."""
+    m, k = A.shape
+    n = B.shape[1]
+    return (2.0 * m * k * n / tg._DENSE_FLOPS_PER_S
+            < tg._estimate_pairs(A, B) / tg._PACKED_PAIRS_PER_S)
+
+
+def test_spgemm_auto_cases_cover_both_routes():
+    picks = {_auto_picks_dense(*both(n, d)[:2]) for n, d in AUTO_CASES}
+    assert picks == {True, False}
+
+
+@pytest.mark.parametrize("n,density", AUTO_CASES)
+def test_spgemm_auto_matches_fp64_on_either_route(monkeypatch, n, density):
+    """Whichever route the card-measured crossover constants pick, the
+    product is C = A @ B on the plan's pattern."""
+    A, B, _, _, sa, sb = both(n, density)
+    routes = []
+    densify = tg.spgemm_densify
+    monkeypatch.setattr(tg, "spgemm_densify",
+                        lambda *a: routes.append("dense") or densify(*a))
+    C = smt.spgemm(A, B, method="auto")
+    assert (routes == ["dense"]) == _auto_picks_dense(A, B)
+    _assert_csr(C, _oracle(sa, sb))
