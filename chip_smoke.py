@@ -141,6 +141,19 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    ``timed_ms``, ``wall_ms`` and the peaks come from the package
    (``utils/timer.py``, ``utils/roofline.py``), so the bench suite and
    this script time the same way.
+6. probes (slice 9) — the kernels of the JAX repository's probe and repro
+   scripts (``probes/``): first each against its plain version at the
+   probes' card shapes (the three row-lane ablations on the XL CSR's
+   group-128 rowlane pack, the single, dual and pooled gather steps on
+   32768 slabs with x the XL vector, the row gather at the four repro
+   shapes, the metadata scale on flat, 2-D and row-padded metadata), the
+   gather steps also against the scripts' fp64 oracle; then, every launch
+   counter set to 0, the six modules' ``run`` (their main path: each
+   checks its results, then times kernel, plain version and the one-call
+   yardstick where there is one), ``probe_xl_spmv`` on this script's XL
+   CSR with one ``utils.profiling.device_trace`` around the rowlane call,
+   which must name the ``spmv_rowlane`` kernel; the counters are read just
+   after and each probe kernel must have launched.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -199,6 +212,13 @@ BENCH_KERNELS = {
                "trisolve_fused"),
     "codebook_gemm": ("codebook_spmm",),
 }
+
+
+# the kernels of the probes phase (phase 6), launched by probes/ only
+PROBE_KERNELS = ("probe_rowlane_dma_only", "probe_rowlane_fixed_window",
+                 "probe_rowlane_slice_no_gather", "probe_gather_single",
+                 "probe_gather_dual", "probe_gather_pooled",
+                 "probe_tile_gather", "probe_meta_scale")
 
 
 def emit(obj) -> None:
@@ -539,6 +559,144 @@ def plane_bytes(packed) -> int:
                          packed.group_tile, packed.slab_win)
                + ((packed.slab_tloc,) if packed.slab_tloc is not None
                   else ()))
+
+
+# the probe kernels' entries of the kernels line: (kernel, source,
+# replaces, the probe row (name, size) it takes its times from, the case
+# of phase 6's check)
+PROBE_LINE = [
+    *[(f"probe_rowlane_{b.replace('-', '_')}", "probe_rowlane.cu",
+       "benchmarks/probe_xl_spmv.py:115", (f"probe_xl/variant-{b}", None),
+       "XL fp32 group=128") for b in ("dma-only", "fixed-window",
+                                      "slice-no-gather")],
+    ("probe_gather_single", "probe_gather_step.cu",
+     "benchmarks/probe_dualgather.py:179",
+     ("probe_dualgather/P3-single", "card"), "32768 slabs S=256"),
+    ("probe_gather_dual", "probe_gather_step.cu",
+     "benchmarks/probe_dualgather.py:67",
+     ("probe_dualgather/P3-dual", "card"), "32768 slabs S=256"),
+    ("probe_gather_pooled", "probe_gather_step.cu",
+     "benchmarks/probe_sublane_slice.py:66",
+     ("probe_sublane_slice/P3-pooled", "card"), "32768 slabs S=256"),
+    ("probe_tile_gather", "probe_tile_gather.cu",
+     "docs/repro_dynamic_gather_shapes.py:27",
+     ("repro_dynamic_gather_shapes/(32,128)", None), "(32,128)"),
+    ("probe_meta_scale", "probe_meta_scale.cu",
+     "docs/repro_smem_lane_padding.py:51",
+     ("repro_smem_lane_padding/2-D", None), "2-D"),
+]
+
+
+def run_probes(dev, sp_xl, x_xl_np, A_xl, x_xl, errs, failures,
+               main_launches):
+    """Phase 6: each probe kernel against its plain version at the probes'
+    card shapes, then the six probe modules with the launch counters set
+    to 0 just before and read just after.  Records the checks' errors in
+    ``errs``, the launches in ``main_launches`` and every fault in
+    ``failures``; returns the modules' rows by (name, size)."""
+    from sparsematrix_tpu_torch.kernels import _build
+    from sparsematrix_tpu_torch.kernels import probe_gather_step as pgmod
+    from sparsematrix_tpu_torch.kernels.probe_meta_scale import (
+        _meta_scale_cuda, meta_scale_reference)
+    from sparsematrix_tpu_torch.kernels.probe_rowlane import (
+        STEPS, _probe_rowlane_cuda, pad_x, probe_rowlane_reference)
+    from sparsematrix_tpu_torch.kernels.probe_tile_gather import (
+        _tile_gather_cuda, tile_gather_reference)
+    from sparsematrix_tpu_torch.kernels.spmv_rowlane import pack_sell_rowlane
+    from sparsematrix_tpu_torch.probes import (probe_calibrate_xcheck,
+                                               probe_dualgather,
+                                               probe_sublane_slice,
+                                               probe_xl_spmv,
+                                               repro_dynamic_gather_shapes,
+                                               repro_smem_lane_padding)
+    from sparsematrix_tpu_torch.probes._common import Session
+
+    def check(kernel, case, got, plain, rel_tol, oracle=None):
+        """The kernel against its plain version within ``rel_tol`` of the
+        plain result's scale (0: bit for bit) and, given an fp64 oracle,
+        within the scripts' 1e-4 of its scale."""
+        torch.cuda.synchronize()
+        scale = max(float(plain.abs().max()), 1e-30)
+        err = float((got - plain).abs().max())
+        ok = (torch.equal(got, plain) if rel_tol == 0 else
+              err <= rel_tol * scale) and bool(torch.isfinite(got).all())
+        row = {"phase": "check", "kernel": kernel, "case": case,
+               "max_abs_err": err, "tol": rel_tol * scale}
+        if oracle is not None:
+            row["rel_err_oracle"] = float(
+                np.abs(got.double().cpu().numpy()[0] - oracle).max()
+                / max(np.abs(oracle).max(), 1e-30))
+            ok = ok and row["rel_err_oracle"] < probe_dualgather.TOL
+        emit({**row, "ok": ok})
+        errs[(kernel, case)] = err
+        if not ok:
+            failures.append(f"check {kernel} {case}")
+
+    # fp32: summation order only (1e-5 of the output's scale); the gather
+    # and the metadata scale do no sums: bit for bit
+    t = time.perf_counter()
+    P_g128 = pack_sell_rowlane(A_xl, group=128)
+    torch.cuda.synchronize()
+    emit({"phase": "pack", "pack": "XL rowlane fp32 group=128",
+          "seconds": time.perf_counter() - t, "n_slabs": P_g128.n_slabs,
+          "fill": P_g128.fill_rate})
+    body = probe_xl_spmv.strip_spill(P_g128)
+    xp = pad_x(x_xl, body.n_win)
+    for step in STEPS:
+        check(f"probe_rowlane_{step.replace('-', '_')}", "XL fp32 group=128",
+              _probe_rowlane_cuda(body, xp, step),
+              probe_rowlane_reference(body, xp, step), 1e-5)
+    d = probe_dualgather.inputs(np.random.default_rng(11), S=256, group=64,
+                                n_groups=512,
+                                xp=probe_dualgather.xl_vector())
+    d["ptr"] = np.random.default_rng(12).integers(
+        0, 256, d["win"].shape + (8,)).astype(np.int32)
+    tg = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+    for mode in ("single", "dual", "pooled"):
+        args = (tg["ptr"] if mode == "pooled" else tg["win"],
+                None if mode == "single" else tg["idxA"], tg["idxB"],
+                tg["vals"], tg["xp"])
+        check(f"probe_gather_{mode}", "32768 slabs S=256",
+              pgmod._step_cuda(mode, *args), pgmod._step_plain(mode, *args),
+              1e-5, probe_dualgather.oracle(mode, d))
+    del tg, d
+    for R, C in repro_dynamic_gather_shapes.SHAPES:
+        g = torch.Generator(device=dev).manual_seed(R * C)
+        tab = torch.randn((R, C), device=dev, generator=g)
+        idx = torch.randint(0, C, (R, C), device=dev, generator=g,
+                            dtype=torch.int32)
+        check("probe_tile_gather", f"({R},{C})", _tile_gather_cuda(tab, idx),
+              tile_gather_reference(tab, idx), 0.0)
+    xm = torch.randn((8, 128), device=dev)
+    for label, meta, cols, _ in repro_smem_lane_padding.layouts(dev):
+        check("probe_meta_scale", label, _meta_scale_cuda(meta, xm, cols),
+              meta_scale_reference(meta, xm, cols), 0.0)
+
+    # the main path: the six modules as a user runs them
+    sess = Session(dev, quiet=True)
+    _build.launch_counts.clear()
+    t = time.perf_counter()
+    ran = {
+        "probe_xl_spmv": probe_xl_spmv.run(
+            sess, sp_xl, x_xl_np, configs=("fp32-g128",), A=A_xl,
+            packs={"fp32-g128": P_g128}),
+        "probe_dualgather": probe_dualgather.run(sess),
+        "probe_sublane_slice": probe_sublane_slice.run(sess),
+        "repro_dynamic_gather_shapes": repro_dynamic_gather_shapes.run(sess),
+        "repro_smem_lane_padding": repro_smem_lane_padding.run(sess),
+        "probe_calibrate_xcheck": probe_calibrate_xcheck.run(sess)}
+    torch.cuda.synchronize()
+    counts = {kn: _build.launch_counts[kn] for kn in PROBE_KERNELS}
+    for row in sess.rows:
+        emit({"phase": "probes", **row})
+    emit({"phase": "probes", "seconds": time.perf_counter() - t,
+          "launches": counts, "passed": ran})
+    failures += [f"probes {name}" for name, ok in ran.items() if not ok]
+    for kn, v in counts.items():
+        main_launches[kn] = v
+        if v == 0:
+            failures.append(f"kernel {kn} was not launched by the probes")
+    return {(r["name"], r.get("size")): r for r in sess.rows}
 
 
 def main() -> int:
@@ -2248,7 +2406,7 @@ def main() -> int:
     mark("main path, slice 8 (bench suite)")
 
     for kn, v in main_launches.items():
-        if v == 0:
+        if v == 0 and kn not in PROBE_KERNELS:
             failures.append(f"kernel {kn} was not launched on the main path")
 
     # -- 5. timings ---------------------------------------------------------
@@ -2748,6 +2906,11 @@ def main() -> int:
           "ratio": s8_rows["256 MiB fp32"]["ms"] / s8_rows["128 MiB fp32"]["ms"]})
     mark("timings, slice 8")
 
+    # -- 6. probes ------------------------------------------------------------
+    probe_rows = run_probes(dev, sp_xl, x_xl_np, A_xl, x_xl, errs, failures,
+                            main_launches)
+    mark("probes")
+
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -2883,6 +3046,16 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "case": case})
+    for name, src, replaces, key, case in PROBE_LINE:
+        row = probe_rows[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sparsematrix_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": main_launches[name],
+            "max_abs_err": errs[(name, case)], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "case": case})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

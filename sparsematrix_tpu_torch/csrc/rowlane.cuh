@@ -24,6 +24,21 @@
 // revisits of one output block, its per-group sublane sum and its
 // "touched" mask; with L > 1 the L lanes of a row fold in the atomics.
 // Only the fp32 summation order varies, from run to run.
+//
+// The walk is a __device__ function; each source wraps it in a
+// __global__ kernel of its own name (spmv_rowlane_walk,
+// spmv_superblock_walk, probe_rowlane_walk), so that a profiler trace
+// names the kernel.  Its Step parameter is Step::kFull for the SpMV; the
+// probe of benchmarks/probe_xl_spmv.py (probe_rowlane.cu) takes out one
+// piece of the slab step at a time, on the same walk and block geometry:
+//  * kDmaOnly:       sum vals[u][l] (no x read at all);
+//  * kFixedWindow:   vals[u][l] * x[u*128 + s_idx[u][l]]: the lane gather
+//                    in window 0, no slab_win read;
+//  * kSliceNoGather: vals[u][l] * x[w*1024 + u*128 + l]: the slab's window,
+//                    no lane gather.
+// Each variant still streams both planes: its s_idx bytes that no
+// arithmetic needs go into an integer checksum that is flushed only if it
+// equals a value no run reaches, so the compiler cannot drop the loads.
 #pragma once
 
 #include <cstdint>
@@ -59,15 +74,18 @@ __device__ __forceinline__ long long slab_tile(const Pack& p, long long s) {
   return t;
 }
 
-template <bool BF16, bool SB>
-__global__ void __launch_bounds__(kThreads)
-    walk(Pack p, const float* __restrict__ x, float* __restrict__ y,
-         int spb) {
+enum class Step { kFull, kDmaOnly, kFixedWindow, kSliceNoGather };
+
+template <bool BF16, bool SB, Step kStep>
+__device__ __forceinline__ void walk(const Pack& p,
+                                     const float* __restrict__ x,
+                                     float* __restrict__ y, int spb) {
   const int l = threadIdx.x;
   const long long s0 = (long long)blockIdx.x * spb;
   const long long s1 = min(s0 + spb, p.n_slabs);
   long long cur = -1;
   float acc = 0.f;
+  unsigned chk = 0;  // s_idx bytes the variant's arithmetic does not need
   auto flush = [&]() {
     const long long row = cur * p.T + l % p.T;
     if (cur >= 0 && row < p.rows) atomicAdd(y + row, acc);
@@ -79,19 +97,35 @@ __global__ void __launch_bounds__(kThreads)
       acc = 0.f;
       cur = tile;
     }
-    const long long w0 = (long long)__ldg(p.slab_win + s) * kWindow;
+    const long long w0 =
+        kStep == Step::kFull || kStep == Step::kSliceNoGather
+            ? (long long)__ldg(p.slab_win + s) * kWindow
+            : 0;
     const long long pb = s * kSlab;
     float part = 0.f;
 #pragma unroll
     for (int u = 0; u < kSub; ++u) {
       const long long at = pb + u * kLanes + l;
-      const long long col = w0 + u * kLanes + (__ldg(p.s_idx + at) & 127);
+      const unsigned lane = __ldg(p.s_idx + at);
       const float v = load_val<BF16>(p.vals, at);
+      if (kStep == Step::kDmaOnly) {
+        chk += lane;
+        part += v;
+        continue;
+      }
+      long long col = w0 + u * kLanes;
+      if (kStep == Step::kSliceNoGather) {
+        chk += lane;
+        col += l;
+      } else {
+        col += lane & 127;
+      }
       part = fmaf(v, (col < p.cols) ? __ldg(x + col) : 0.f, part);
     }
     acc += part;
   }
   flush();
+  if (kStep != Step::kFull && chk == 0xFFFFFFFFu) atomicAdd(y, 0.f);
 }
 
 // Contiguous slabs a block walks: up to kMaxSlabsPerBlock, but no more
@@ -107,15 +141,13 @@ inline int slabs_per_block(long long n_slabs) {
                                                       : spb);
 }
 
-template <bool SB>
-cudaError_t launch(const Pack& p, bool bf16, const float* x, float* y,
+// Launches ``kernel`` (a __global__ wrapper of walk) over the pack.
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const Pack& p, const float* x, float* y,
                    cudaStream_t st) {
   const int spb = slabs_per_block(p.n_slabs);
   const unsigned blocks = (unsigned)((p.n_slabs + spb - 1) / spb);
-  if (bf16)
-    walk<true, SB><<<blocks, kThreads, 0, st>>>(p, x, y, spb);
-  else
-    walk<false, SB><<<blocks, kThreads, 0, st>>>(p, x, y, spb);
+  kernel<<<blocks, kThreads, 0, st>>>(p, x, y, spb);
   return cudaGetLastError();
 }
 

@@ -11,10 +11,17 @@
 // What bounds it: bytes.  Each slot reads 4 (fp32) or 2 (bf16) bytes of
 // value and one byte of s_idx and does one FMA; x is gathered from L1/L2.
 //
-// Design: rl::walk (rowlane.cuh).  The TPU kernel's SMEM-budget chunking
-// of the groups into several calls is not needed: one launch covers every
-// group.
+// Design: rl::walk (rowlane.cuh) in the kernel spmv_rowlane_walk.  The TPU
+// kernel's SMEM-budget chunking of the groups into several calls is not
+// needed: one launch covers every group.
 #include "rowlane.cuh"
+
+template <bool BF16>
+__global__ void __launch_bounds__(rl::kThreads)
+    spmv_rowlane_walk(rl::Pack p, const float* __restrict__ x,
+                      float* __restrict__ y, int spb) {
+  rl::walk<BF16, false, rl::Step::kFull>(p, x, y, spb);
+}
 
 // x (cols,) fp32; y (rows,) fp32, zeroed by the caller.  Returns the
 // cudaError_t of the launch.
@@ -33,7 +40,9 @@ extern "C" int spmv_rowlane(const void* s_idx, const void* vals,
                    nullptr,
                    n_slabs, rows, cols, group, 1,
                    rl::kLanes / lanes_per_row};
-  return (int)rl::launch<false>(p, bf16 != 0, static_cast<const float*>(x),
-                                static_cast<float*>(y),
-                                static_cast<cudaStream_t>(stream));
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? rl::launch(spmv_rowlane_walk<true>, p, xf, yf, st)
+                    : rl::launch(spmv_rowlane_walk<false>, p, xf, yf, st));
 }

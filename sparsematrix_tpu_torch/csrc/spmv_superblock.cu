@@ -10,10 +10,17 @@
 // What bounds it: bytes, as the rowlane kernel (one byte of s_idx and 4
 // or 2 bytes of value a slot).
 //
-// Design: rl::walk (rowlane.cuh) with the tile group_super * k_tiles +
-// slab_tloc and lanes_per_row 1.  Padding slabs repeat the last real
-// slab's window and tile and carry value 0.
+// Design: rl::walk (rowlane.cuh) in the kernel spmv_superblock_walk, with
+// the tile group_super * k_tiles + slab_tloc and lanes_per_row 1.  Padding
+// slabs repeat the last real slab's window and tile and carry value 0.
 #include "rowlane.cuh"
+
+template <bool BF16>
+__global__ void __launch_bounds__(rl::kThreads)
+    spmv_superblock_walk(rl::Pack p, const float* __restrict__ x,
+                         float* __restrict__ y, int spb) {
+  rl::walk<BF16, true, rl::Step::kFull>(p, x, y, spb);
+}
 
 // x (cols,) fp32; y (rows,) fp32, zeroed by the caller.  Returns the
 // cudaError_t of the launch.
@@ -31,7 +38,9 @@ extern "C" int spmv_superblock(const void* s_idx, const void* vals,
                    static_cast<const int32_t*>(slab_win),
                    static_cast<const int32_t*>(slab_tloc),
                    n_slabs, rows, cols, group, k_tiles, rl::kLanes};
-  return (int)rl::launch<true>(p, bf16 != 0, static_cast<const float*>(x),
-                               static_cast<float*>(y),
-                               static_cast<cudaStream_t>(stream));
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? rl::launch(spmv_superblock_walk<true>, p, xf, yf, st)
+                    : rl::launch(spmv_superblock_walk<false>, p, xf, yf, st));
 }

@@ -46,7 +46,8 @@ SOURCES = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmm_dualgather", "window_permute", "spmv_octet", "spmv_rowlane",
            "spmv_superblock", "trisolve_waves", "trisolve_fused",
            "spmm_octet", "spmv_pooled", "spmv_sell", "spmm_bsr",
-           "spmm_rowlane", "stream_copy")
+           "spmm_rowlane", "stream_copy", "probe_rowlane",
+           "probe_gather_step", "probe_tile_gather", "probe_meta_scale")
 # the launch counters: one per kernel (a source may hold several)
 KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "spmv_dualgather_sb", "spmm_dualgather", "spmm_dualgather_sb",
@@ -54,7 +55,13 @@ KERNELS = ("codebook_spmm", "spmm_blocked_ell", "spmv_dualgather",
            "trisolve_fused", "trisolve_chain", "trisolve_binv",
            "trisolve_chain_mm", "spmm_octet", "spmv_pooled", "spmv_sell",
            "spmv_sell_rowpure", "spmm_bsr", "spmm_bsr_panel",
-           "spmm_rowlane", "stream_copy")
+           "spmm_rowlane", "stream_copy",
+           # the probes' kernels (probes/): row 23's three bodies, rows
+           # 24-26's three steps, rows 27 and 28
+           "probe_rowlane_dma_only", "probe_rowlane_fixed_window",
+           "probe_rowlane_slice_no_gather", "probe_gather_single",
+           "probe_gather_dual", "probe_gather_pooled", "probe_tile_gather",
+           "probe_meta_scale")
 # the host sources (native/<name>.cc)
 HOST_SOURCES = ("assign", "rowlane", "octet", "color", "factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,7 +116,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     ``nvcc`` per source, all started together.  Returns, per name, the
     library path, the build seconds (0 when it was already built) and
     ``nvcc``'s output (the ``-Xptxas -v`` register and shared-memory
-    report).  Raises if a compile fails."""
+    report, kept beside the library as ``<library>.log``, so that a
+    library built earlier reports it too).  Raises if a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -117,7 +125,9 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     for name in names:
         path = _lib_path(CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR)
         if path.exists():
-            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            log = path.with_suffix(".log")
+            out[name] = {"path": str(path), "seconds": 0.0,
+                         "log": log.read_text() if log.exists() else ""}
             continue
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -130,6 +140,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        tmp.with_suffix(".log").write_text(log)
+        os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
         os.replace(tmp, path)
         out[name] = {"path": str(path),
                      "seconds": time.perf_counter() - t0, "log": log}

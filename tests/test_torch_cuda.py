@@ -1351,3 +1351,177 @@ def test_quantized_addmatmat_on_card(dev):
     for got, want in zip(on_card, out):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# -- the probes' kernels (rows 23-28) ----------------------------------------
+
+@pytest.mark.parametrize("step", ["dma-only", "fixed-window",
+                                  "slice-no-gather"])
+@pytest.mark.parametrize("case", [((1100, 900), 0.02, 1),
+                                  ((3000, 5000), 0.01, 8),
+                                  ((2048, 2048), 0.008, 128)])
+def test_probe_rowlane_kernel(dev, case, step):
+    """Each body of the row-lane walk ablation against its plain version,
+    ragged last tile and window, one to many slabs a group."""
+    from sparsematrix_tpu_torch.kernels.probe_rowlane import (
+        pad_x, probe_rowlane, probe_rowlane_reference)
+
+    shape, density, group = case
+    rng = np.random.default_rng(shape[0])
+    P = pack_sell_rowlane(CSR.from_scipy(_sparse(rng, shape, density),
+                                         device=dev), group=group)
+    x = torch.from_numpy(rng.standard_normal(shape[1]).astype(
+        np.float32)).to(dev)
+    xp = pad_x(x, P.n_win)
+    name = "probe_rowlane_" + step.replace("-", "_")
+    before = _build.launch_counts[name]
+    got = probe_rowlane(P, xp, step)
+    assert _build.launch_counts[name] == before + 1
+    assert got.shape == (P.n_tiles * 8, 128)
+    assert_kernel_close(got, probe_rowlane_reference(P, xp, step))
+
+
+def _gather_planes(rng, S, group, n_groups, wild):
+    """The probe scripts' planes; ``wild`` puts bytes outside every index
+    range into them (negative int8, chunk >= 8, rows outside [0, S))."""
+    d = {"win": rng.integers(0, S // 8, (n_groups, group)),
+         "ptr": rng.integers(0, S, (n_groups, group, 8)),
+         "idxA": rng.integers(0, 8, (n_groups, group * 8, 128)),
+         "idxB": rng.integers(0, 128, (n_groups, group * 8, 128)),
+         "vals": rng.normal(size=(n_groups, group * 8, 128))}
+    if wild:
+        for key, lo, hi in (("idxA", -128, 128), ("idxB", -128, 128),
+                            ("win", -2, S // 8 + 2), ("ptr", -3, S + 3)):
+            m = rng.random(d[key].shape) < 0.05
+            d[key] = np.where(m, rng.integers(lo, hi, d[key].shape), d[key])
+    dt = {"win": np.int32, "ptr": np.int32, "idxA": np.int8, "idxB": np.int8,
+          "vals": np.float32}
+    return {k: torch.from_numpy(v.astype(dt[k])) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("size", [(64, 8, 4), (256, 64, 16), (256, 1, 3),
+                                  (64, 64, 300)])
+@pytest.mark.parametrize("mode", ["single", "dual", "pooled"])
+def test_probe_gather_step_kernels(dev, mode, size, wild):
+    """Each gather step against its plain version, at the probe scripts'
+    sizes and others, with random chunk indices and, ``wild``, indices
+    outside their ranges (each adds nothing in both versions)."""
+    from sparsematrix_tpu_torch.kernels import probe_gather_step as pg
+
+    S, group, n_groups = size
+    t = {k: v.to(dev) for k, v in _gather_planes(
+        np.random.default_rng(S + group + n_groups), S, group, n_groups,
+        wild).items()}
+    t["xp"] = torch.randn((S, 128), device=dev)
+    first = t["ptr"] if mode == "pooled" else t["win"]
+    args = ((first, t["idxB"], t["vals"], t["xp"]) if mode == "single" else
+            (first, t["idxA"], t["idxB"], t["vals"], t["xp"]))
+    kern = getattr(pg, f"{mode}_step")
+    plain = getattr(pg, f"{mode}_step_reference")
+    before = _build.launch_counts[f"probe_gather_{mode}"]
+    got = kern(*args)
+    assert _build.launch_counts[f"probe_gather_{mode}"] == before + 1
+    assert not got[1:].any()
+    assert_kernel_close(got, plain(*args))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (8, 128), (16, 128), (8, 256),
+                                   (32, 128), (3, 1000), (700, 33)])
+def test_probe_tile_gather_kernel(dev, shape):
+    """The row gather at every tile shape, bit for bit against the plain
+    version and torch.gather; out-of-range indices give 0."""
+    from sparsematrix_tpu_torch.kernels.probe_tile_gather import (
+        tile_gather, tile_gather_reference)
+
+    R, C = shape
+    g = torch.Generator(device=dev).manual_seed(R * C)
+    tab = torch.randn((R, C), device=dev, generator=g)
+    idx = torch.randint(0, C, (R, C), device=dev, generator=g,
+                        dtype=torch.int32)
+    before = _build.launch_counts["probe_tile_gather"]
+    got = tile_gather(tab, idx)
+    assert _build.launch_counts["probe_tile_gather"] == before + 1
+    assert torch.equal(got, torch.gather(tab, 1, idx.long()))
+    wild = idx.clone()
+    wild.view(-1)[::3] = -1
+    wild.view(-1)[1::5] = C
+    got = tile_gather(tab, wild)
+    assert torch.equal(got, tile_gather_reference(tab, wild))
+    assert not got.view(-1)[::3].any()
+
+
+@pytest.mark.parametrize("steps", [1, 37, 512])
+@pytest.mark.parametrize("layout", ["flat", "2-D", "padded"])
+def test_probe_meta_scale_kernel(dev, layout, steps):
+    """The last step's scalar wins, for flat, 2-D and row-padded metadata,
+    from one step to the repro's 512."""
+    from sparsematrix_tpu_torch.kernels.probe_meta_scale import (
+        meta_scale, meta_scale_reference)
+
+    flat = torch.arange(steps * 6, dtype=torch.int32, device=dev)
+    cols = None
+    if layout == "flat":
+        meta, cols = flat, 6
+    elif layout == "2-D":
+        meta = flat.view(steps, 6)
+    else:
+        meta = torch.zeros((steps, 8), dtype=torch.int32, device=dev)
+        meta[:, :6] = flat.view(steps, 6)
+        meta = meta[:, :6]
+    x = torch.randn((8, 128), device=dev)
+    before = _build.launch_counts["probe_meta_scale"]
+    got = meta_scale(meta, x, cols)
+    assert _build.launch_counts["probe_meta_scale"] == before + 1
+    assert torch.equal(got, meta_scale_reference(meta, x, cols))
+    assert torch.equal(got, x * float((steps - 1) * 6))
+
+
+def test_device_trace_names_the_rowlane_kernel(dev, tmp_path):
+    """``device_trace`` on the card: the trace file is written and the
+    profiler holds the rowlane kernel's device time under its name."""
+    from sparsematrix_tpu_torch.utils.profiling import (annotate, device_trace,
+                                                       kernel_times)
+
+    rng = np.random.default_rng(5)
+    P = pack_sell_rowlane(CSR.from_scipy(_sparse(rng, (4096, 4096), 0.01),
+                                         device=dev))
+    x = torch.randn(4096, device=dev)
+    spmv_sell_rowlane(P, x)
+    torch.cuda.synchronize()
+    with device_trace(str(tmp_path)) as prof:
+        with annotate("rowlane call"):
+            spmv_sell_rowlane(P, x)
+        torch.cuda.synchronize()
+    assert (tmp_path / "trace.json").exists()
+    kernels = kernel_times(prof)
+    hits = [v for k, v in kernels.items() if "spmv_rowlane" in k]
+    assert hits and hits[0]["device_ms"] > 0, kernels
+
+
+@pytest.mark.parametrize("name,small", [
+    ("probe_xl_spmv", lambda m, s: m.run(
+        s, *m.build(4096, 64), configs=("fp32-g128", "bf16-g32-sp4"))),
+    ("probe_dualgather", lambda m, s: m.run(s, card_groups=8)),
+    ("probe_sublane_slice", lambda m, s: m.run(s, card_groups=8)),
+    ("repro_dynamic_gather_shapes", None),
+    ("repro_smem_lane_padding", None),
+    ("probe_calibrate_xcheck", lambda m, s: m.run(s, mib=4))])
+def test_probe_modules_on_card(dev, tmp_path, name, small):
+    """Each probe module on the card at a small size (the repros through
+    their command line, at the script's size): every check passes and
+    every timed row has a device time and the card."""
+    import importlib
+    import json
+
+    from sparsematrix_tpu_torch.probes._common import Session
+
+    mod = importlib.import_module(f"sparsematrix_tpu_torch.probes.{name}")
+    out = tmp_path / "rows.json"
+    if small is None:
+        assert mod.main(["--out", str(out)]) == 0
+    else:
+        assert small(mod, Session(dev, str(out), quiet=True))
+    rows = json.loads(out.read_text())
+    assert rows and all(r["card"] and r["device"] == "cuda" for r in rows)
+    assert all(r["ms"] > 0 for r in rows if "ms" in r)
