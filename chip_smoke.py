@@ -63,7 +63,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    each also as a view one element past a 16-byte boundary.
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
    CodebookCSR, a CodebookDense and a BlockedELL ``b_t``, and a batch of
-   4096 rows through the same weight; then ``spmv`` and ``spmm`` (k = 32)
+   4096 rows through the same weight (a codebook container takes the
+   table lookup and one product, as the JAX package routes it: these
+   paths must launch no ``codebook_spmm``; the fused kernel, row 1,
+   launches in the bench phase's ``fused-pallas`` rows); then ``spmv``
+   and ``spmm`` (k = 32)
    on the XL CSR through the auto routes, ``spmm`` on ``prepare_spmv``'s
    pack, and ``spmv`` at n = 4096 and n = 1024; then the SpGEMM numeric
    phase on each packed plan (CSR and CSC out) and one-shot
@@ -124,7 +128,8 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    phase included) or one ``torch.gather``.  For the trisolve kernels
    the yardstick is cuSPARSE's triangular solve through
    ``torch.triangular_solve`` with a CSR matrix (its analysis runs in
-   every call), and the count of dependent steps is printed; for each
+   every call), and the count of dependent steps is printed (binv also
+   at the 512² IC(0) factor, 256 waves); for each
    solver cell the time of an iteration (a tol=0 run of 25 iterations,
    device and wall), iterations and ms to tol.  For the slice-5 kernels
    the yardstick is cuSPARSE SpMV/SpMM of the same CSR (for the pooled
@@ -487,30 +492,6 @@ def pack_to_scipy(packed, slot_row_col):
         shape=packed.shape).tocsr()
     rem = getattr(packed, "rem", None)
     return out if rem is None else (out + pack_to_scipy(rem, slot_row_col))
-
-
-def scattered_lower(n: int = 65536, nnz_row: int = 8):
-    """The JAX bench's ``trisolve`` factor (``bench/suite.py:1264-1278``)
-    at n = 65536: the strictly lower part of a uniformly random n×n
-    pattern of ``nnz_row`` entries a row (values in [0, 1)) plus 4·I; b
-    from ``default_rng(6)``, values in ±1000.  The bench draws the pattern
-    with ``sps.random``, which takes minutes at this n (it samples n²
-    positions without replacement); this draws the same law from
-    ``default_rng(6)`` with replacement, duplicates merged.  Returns
-    (scipy CSR, b)."""
-    import scipy.sparse as sps
-
-    from sparsematrix_tpu_torch.utils.testutils import gen_matrix_random
-
-    rng = np.random.default_rng(6)
-    k = n * nnz_row
-    d = sps.coo_matrix((rng.random(k, dtype=np.float32),
-                        (rng.integers(0, n, k), rng.integers(0, n, k))),
-                       shape=(n, n)).tocsr()
-    d.sum_duplicates()
-    L = (sps.tril(d, k=-1).tocsr()
-         + sps.eye(n, format="csr", dtype=np.float32) * 4.0).tocsr()
-    return L, gen_matrix_random(rng, n, 1)[:, 0]
 
 
 def solve_plan_bytes(plan) -> int:
@@ -1142,6 +1123,7 @@ def main() -> int:
     from sparsematrix_tpu_torch.kernels import spmm_dualgather
     from sparsematrix_tpu_torch.solvers import block_cg, cg
     from sparsematrix_tpu_torch.utils.testutils import (poisson2d,
+                                                        scattered_lower,
                                                         tri_oracle,
                                                         triangular)
 
@@ -1279,8 +1261,8 @@ def main() -> int:
               True, False)
     tri_check("trisolve_fused", "fused ic0 L^T Poisson 256^2 (upper)", F_icU,
               Lic_sp.T.tocsr(), False, False)
-    del P_ic2L, P_ic2U, P_band  # 3 GB of plans; the timings keep the rest
-    tri_cases[bv] = [c for c in tri_cases[bv] if "512^2" not in c[0]]
+    del P_ic2U, P_band  # 2 GB of plans; the timings keep the rest
+    tri_cases[bv] = [c for c in tri_cases[bv] if "512^2 (upper" not in c[0]]
     tri_cases[ch] = [c for c in tri_cases[ch] if "band" not in c[0]]
 
     # slice 5: octet SpMM (row 16), the pooled spill tail (row 12) and the
@@ -1633,8 +1615,10 @@ def main() -> int:
             want4 = (c4.double() + a4.double()
                      @ torch.from_numpy(bt_dense).to(dev).double().T)
             ok = ok and relative_check(y64, want4.cpu().numpy())
-        expect = "spmm_blocked_ell" if "BlockedELL" in name else "codebook_spmm"
-        ok = ok and counts[expect] > 0
+        # a codebook container takes the lookup + one product (the JAX
+        # route): the fused kernel (row 1) must not launch there
+        ok = ok and counts["codebook_spmm"] == 0 and (
+            counts["spmm_blocked_ell"] > 0) == ("BlockedELL" in name)
         emit({"phase": "main_path", "path": name, "shape": list(y.shape),
               "launches": counts, "oracle_check": ok, "ok": ok})
         if not ok:
@@ -2355,6 +2339,7 @@ def main() -> int:
         main_launches[kn] += v
     emit({"phase": "bench", "group": "headline", "line": head,
           "seconds": time.perf_counter() - t, "launches": counts})
+    # the headline is checked, and its fused-pallas rows launched row 1
     if not (head["checked"] and counts.get("codebook_spmm")):
         failures.append("bench headline")
     bench_rows = {}
@@ -2573,6 +2558,21 @@ def main() -> int:
               "device_ms": dev_ms(run),
               "dense_fp32_wall_ms": wall_ms(dense_run),
               "dense_fp32_device_ms": dev_ms(dense_run)})
+    # the codebook route beside the fused kernel (row 1) in the same
+    # arithmetic, the route the port took before it followed the JAX
+    # package, and the lookup's index widening alone
+    def lookup_run():
+        return add_mat_mat(a, b_dns, c, 1.0, 1.0)
+
+    def fused_run():
+        return (1.0 * _codebook_spmm_cuda(b_dns.idx, b_dns.val_table, a.T).T
+                + 1.0 * c)
+
+    emit({"phase": "e2e", "path": f"add_mat_mat {m}x{n}x{k} CodebookDense "
+          "lookup vs fused kernel", "wall_ms": wall_ms(lookup_run),
+          "device_ms": dev_ms(lookup_run), "fused_wall_ms": wall_ms(fused_run),
+          "fused_device_ms": dev_ms(fused_run),
+          "index_long_device_ms": dev_ms(lambda: b_dns.idx.long())})
 
     # spmv/spmm through the public API on the XL CSR (packs cached by the
     # main path), beside cuSPARSE on the same CSR

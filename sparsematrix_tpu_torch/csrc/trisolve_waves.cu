@@ -38,13 +38,34 @@
 //    their products, sums the quarters and publishes x_g.  fp32 FMA on
 //    CUDA cores (no TF32: the TPU kernel runs Precision.HIGHEST); bf16
 //    planes are widened to fp32 on load.
-//  * binv: one block a (wave i, tile p).  It waits until every earlier
-//    wave is committed, gathers the slabs of tile p (slab_tloc == p; the
-//    block lists them in shared memory first, so their loads overlap),
-//    publishes u_p, waits for u_0..u_{p-1} of its wave (lower tickets)
-//    and computes x_p = sum_{q <= p} u_q . a1[i][q, p]: a1 = inv(D)^T is
-//    block upper triangular (D lower), so blocks q > p are exact zeros
-//    and are skipped.  The m blocks of a wave stream a1[i] in parallel.
+//  * binv: the first design (one block a (wave, tile)) did all of a
+//    wave's work on the chain's critical path: it waited for the previous
+//    wave, scanned the wave's slab list, gathered its tile's slabs with
+//    dependent loads, exchanged u and only then streamed its (p+1) x 64 KB
+//    column block of a1 through one SM: 54-62 us a wave on the scattered
+//    factor, ~34 of them the gather and ~17 the a1 stream (ablations of
+//    that design), where only 3 % of the slabs read the previous wave's
+//    window and none of a1 depends on x.  Here
+//    the solve is a work list built on the host (kernels/trisolve_waves.py
+//    _binv_items_build), one item a block in ticket order:
+//      - a gather adds a run of one tile's slabs into that tile's fp32
+//        accumulator (atomicAdd) as soon as the waves its windows read are
+//        committed, so a slab of an old window runs waves ahead of the
+//        front; it loads its first slabs' planes before it waits;
+//      - a product (wave i, blocks q <= p) loads its 128 x 128 block of
+//        a1 into registers before it waits (the resident items prefetch
+//        a1 for the waves ahead); once tile q's gathers are done and wave
+//        i - 1 is committed it gathers tile q's few late slabs (those of
+//        wave i - 1's window, folded into each of the tile's products),
+//        forms u_q = b_q - acc_q - late itself and adds u_q . a1[i][q, p]
+//        into x_p (atomicAdd); blocks q > p are exact zeros and have no
+//        item.
+//    A wave commits when its m(m+1)/2 products are done, so the critical
+//    path of a wave is one hop: the commit signal of wave i - 1, one L2
+//    read of its x for the late slabs, and 32 FMAs a thread on a block
+//    already on chip.
+//    Sums are added in an order that varies from run to run (atomics).
+//    One launch a solve.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -119,80 +140,117 @@ __global__ void __launch_bounds__(kThreads)
   ts::signal_add(sync + 1, 1);
 }
 
-// sync[0]: ticket, sync[1]: (wave, tile) steps committed, sync[2 + t]:
-// u of tile t published.  x (S*128) fp32, zeroed; u (S*128) scratch.
+// binv's work list (kernels/trisolve_waves.py _binv_items_build): 12
+// ints an item.
+enum Item {
+  kKind, kTile, kTileQ, kWave, kSlabA, kSlabB, kWaitLo, kWaitHi, kTarget,
+  kWavesLo, kWavesHi, kSignal
+};
+constexpr int kProduct = 0;
+constexpr int kPre = 2;  // slabs whose planes load before the item waits
+
+// Waits until every counter of cnt[lo, hi) reaches target and every one
+// of cnt[wlo, whi) reaches wtarget (a thread a counter); afterwards every
+// thread of the block sees the writes that the items which raised them
+// made before.  A short sleep between polls eases the L2 traffic of the
+// few hundred resident blocks that spin.
+__device__ __forceinline__ void wait_all(const int* cnt, int lo, int hi,
+                                         int target, int wlo, int whi,
+                                         int wtarget) {
+  bool polled = false;
+  for (int c = lo + threadIdx.x; c < hi; c += blockDim.x, polled = true)
+    while (ts::ld_acquire(cnt + c) < target) __nanosleep(64);
+  for (int c = wlo + threadIdx.x; c < whi; c += blockDim.x, polled = true)
+    while (ts::ld_acquire(cnt + c) < wtarget) __nanosleep(64);
+  if (polled) __threadfence();
+  __syncthreads();
+}
+
+// cnt[0]: ticket, then the counters of the items' waits.  x (S*128) fp32
+// and acc (S*128) fp32 zeroed.
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-    binv(const void* __restrict__ a1, const uint8_t* __restrict__ s_idx,
-         const void* __restrict__ vals, const int32_t* __restrict__ slab_win,
-         const int32_t* __restrict__ slab_tloc,
-         const int32_t* __restrict__ wave_ptr, const float* __restrict__ b,
-         float* x, float* u, int* sync, int m, int group, int S) {
-  __shared__ float us[8 * kLanes];
+__global__ void __launch_bounds__(kThreads, 2)
+    binv(const int4* __restrict__ items, const void* __restrict__ a1,
+         const uint8_t* __restrict__ s_idx, const void* __restrict__ vals,
+         const int32_t* __restrict__ slab_win, const float* __restrict__ b,
+         float* x, float* acc, int* cnt, int m, int S) {
+  __shared__ float us[kLanes];
   __shared__ float part[kQuarters][kLanes];
-  __shared__ int match[kThreads];
-  __shared__ int n_match;
-  const int t = ts::draw_ticket(sync);
-  const int i = t / m, p = t % m;
-  const int tid = threadIdx.x, q = tid / kLanes, l = tid % kLanes;
-  const long long N = (long long)S * kLanes;
-  const long long B = (long long)m * kLanes;
-  const long long tile = (long long)i * m + p;
-  // every earlier wave committed: i*m steps done
-  ts::wait_geq(sync + 1, i * m);
-  // the wave's slabs of tile p: the block scans 512 slab tiles at a time
-  // and lists the matches in shared memory (in any order), then gathers
-  // them with independent loads
-  float acc = 0.f;
-  const long long s0 = (long long)__ldg(wave_ptr + i) * group;
-  const long long s1 = (long long)__ldg(wave_ptr + i + 1) * group;
-  for (long long c0 = s0; c0 < s1; c0 += kThreads) {
-    if (tid == 0) n_match = 0;
-    __syncthreads();
-    const long long s = c0 + tid;
-    if (s < s1 && __ldg(slab_tloc + s) == p)
-      match[atomicAdd(&n_match, 1)] = (int)(s - c0);
-    __syncthreads();
-    const int nm = n_match;
-#pragma unroll 4
-    for (int k = 0; k < nm; ++k) {
-      const long long ss = c0 + match[k];
-      acc += ts::slab_pair<BF16>(
-          s_idx, vals, ss, (long long)__ldg(slab_win + ss) * ts::kWindow,
-          2 * q, l, x, N);
-    }
-    __syncthreads();
-  }
-  const float gathered = ts::quarter_sum(part, q, l, acc);
-  if (q == 0) u[tile * kLanes + l] = __ldg(b + tile * kLanes + l) - gathered;
-  ts::signal_add(sync + 2 + tile, 1);
-  // u of tiles 0..p of this wave (the lower tickets of the wave)
-  if (tid == 0) {
-    for (int pp = 0; pp < p; ++pp)
-      while (ts::ld_acquire(sync + 2 + (long long)i * m + pp) < 1) {
-      }
-    __threadfence();
-  }
-  __syncthreads();
-  for (int o = tid; o < (p + 1) * kLanes; o += kThreads)
-    us[o] = ts::ld_x(u, (long long)i * B + o);
-  __syncthreads();
-  // x_p = sum over rows jj of blocks 0..p of u[jj] * a1[i][jj][p*128 + l];
-  // quarter q takes rows jj = q mod 4, four accumulators deep so that 32
-  // row loads a thread are in flight ((p+1)*128 is a multiple of 16)
-  float xs4[4] = {0.f, 0.f, 0.f, 0.f};
-  const long long col = (long long)i * B * B + (long long)p * kLanes + l;
-#pragma unroll 8
-  for (int jj = q; jj < (p + 1) * kLanes; jj += 4 * kQuarters)
+  const int t = ts::draw_ticket(cnt);
+  int it[12];
 #pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int j = jj + h * kQuarters;
-      xs4[h] = fmaf(us[j], ts::load_val<BF16>(a1, col + j * B), xs4[h]);
+  for (int k = 0; k < 3; ++k) {
+    const int4 v = __ldg(items + 3 * t + k);
+    it[4 * k] = v.x;
+    it[4 * k + 1] = v.y;
+    it[4 * k + 2] = v.z;
+    it[4 * k + 3] = v.w;
+  }
+  const int tid = threadIdx.x, q = tid / kLanes, l = tid % kLanes;
+  const bool product = it[kKind] == kProduct;
+  const long long tile = it[kTile], tq = it[kTileQ], i = it[kWave];
+  const long long B = (long long)m * kLanes;
+  const long long N = (long long)S * kLanes;
+  // a product's block (qb, p) of a1[i]: this thread's 32 rows of column l
+  float a[kJ];
+  if (product) {
+    const long long at = i * B * B + ((tq - i * m) * kLanes + q * kJ) * B +
+                         (tile - i * m) * kLanes + l;
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj)
+      a[jj] = ts::load_val<BF16>(a1, at + jj * B);
+  }
+  // slabs [sa, sb) of one tile (a gather's own, or a product's folded
+  // late slabs); this thread takes sublanes 2q, 2q+1 at lane l of each
+  const long long sa = it[kSlabA], sb = it[kSlabB];
+  float v[kPre][2];
+  int col[kPre][2];
+#pragma unroll
+  for (int k = 0; k < kPre; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      v[k][e] = 0.f;
+      col[k][e] = 0;
+      if (sa + k < sb) {
+        const int u = 2 * q + e;
+        const long long o = (sa + k) * ts::kSlab + u * kLanes + l;
+        v[k][e] = ts::load_val<BF16>(vals, o);
+        col[k][e] = (int)((long long)__ldg(slab_win + sa + k) * ts::kWindow +
+                          u * kLanes + (__ldg(s_idx + o) & 127));
+      }
     }
-  const float xs = (xs4[0] + xs4[1]) + (xs4[2] + xs4[3]);
-  const float xp = ts::quarter_sum(part, q, l, xs);
-  if (q == 0) x[tile * kLanes + l] = xp;
-  ts::signal_add(sync + 1, 1);
+  wait_all(cnt, it[kWaitLo], it[kWaitHi], it[kTarget], it[kWavesLo],
+           it[kWavesHi], m * (m + 1) / 2);
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPre; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (v[k][e] != 0.f && col[k][e] < N)
+        sum = fmaf(v[k][e], ts::ld_x(x, col[k][e]), sum);
+#pragma unroll 4
+  for (long long sl = sa + kPre; sl < sb; ++sl)
+    sum += ts::slab_pair<BF16>(
+        s_idx, vals, sl, (long long)__ldg(slab_win + sl) * ts::kWindow,
+        2 * q, l, x, N);
+  const float g = ts::quarter_sum(part, q, l, sum);
+  if (product) {
+    // u_q = b_q - acc_q - (the folded slabs), then x_p += u_q . a1[q, p]
+    if (q == 0)
+      us[l] = __ldg(b + tq * kLanes + l) - ts::ld_x(acc, tq * kLanes + l) - g;
+    __syncthreads();
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kJ; jj += 2) {
+      s0 = fmaf(us[q * kJ + jj], a[jj], s0);
+      s1 = fmaf(us[q * kJ + jj + 1], a[jj + 1], s1);
+    }
+    const float xp = ts::quarter_sum(part, q, l, s0 + s1);
+    if (q == 0) atomicAdd(x + tile * kLanes + l, xp);
+  } else if (q == 0 && g != 0.f) {
+    atomicAdd(acc + tile * kLanes + l, g);
+  }
+  ts::signal_add(cnt + it[kSignal], 1);
 }
 
 template <int R, int K>
@@ -239,33 +297,30 @@ extern "C" int trisolve_chain_mm(const void* a1, const void* a2,
   return chain_entry<8>(a1, a2, b, x, sync, S, K, bf16, stream);
 }
 
-// a1 (n_waves, 128m, 128m); s_idx/vals (n_groups*group slabs of 8x128);
-// slab_win, slab_tloc (n_groups*group,) int32; wave_ptr (n_waves+1,)
-// int32, the first group of each wave; b, x (zeroed), u (S*128) fp32;
-// sync: 2 + n_waves*m zeroed ints.
-extern "C" int trisolve_binv(const void* a1, const void* s_idx,
-                             const void* vals, const void* slab_win,
-                             const void* slab_tloc, const void* wave_ptr,
-                             const void* b, void* x, void* u, void* sync,
-                             int n_waves, int m, int group, int S, int bf16,
+// items (n_items, 12) int32 in ticket order; a1 (n_waves, 128m, 128m);
+// s_idx/vals (n_groups*group slabs of 8x128); slab_win (n_groups*group,)
+// int32; b, x (zeroed), acc (zeroed) (S*128) fp32; cnt (1 + n_waves*(1 +
+// m),) zeroed ints.  Returns the cudaError_t of the launch.
+extern "C" int trisolve_binv(const void* items, int n_items, const void* a1,
+                             const void* s_idx, const void* vals,
+                             const void* slab_win, const void* b, void* x,
+                             void* acc, void* cnt, int m, int S, int bf16,
                              void* stream) {
-  if (n_waves <= 0 || m <= 0 || 8 % m || group <= 0 || S < n_waves * m)
+  if (n_items <= 0 || m <= 0 || 8 % m || S <= 0)
     return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const int4*>(items);
   const auto s8 = static_cast<const uint8_t*>(s_idx);
   const auto sw = static_cast<const int32_t*>(slab_win);
-  const auto tl = static_cast<const int32_t*>(slab_tloc);
-  const auto wp = static_cast<const int32_t*>(wave_ptr);
   const auto bb = static_cast<const float*>(b);
   const auto xx = static_cast<float*>(x);
-  const auto uu = static_cast<float*>(u);
-  const auto sy = static_cast<int*>(sync);
-  const unsigned steps = (unsigned)(n_waves * m);
+  const auto aa = static_cast<float*>(acc);
+  const auto cc = static_cast<int*>(cnt);
   if (bf16)
-    binv<true><<<steps, kThreads, 0, st>>>(a1, s8, vals, sw, tl, wp, bb, xx,
-                                           uu, sy, m, group, S);
+    binv<true><<<(unsigned)n_items, kThreads, 0, st>>>(in, a1, s8, vals, sw,
+                                                       bb, xx, aa, cc, m, S);
   else
-    binv<false><<<steps, kThreads, 0, st>>>(a1, s8, vals, sw, tl, wp, bb, xx,
-                                            uu, sy, m, group, S);
+    binv<false><<<(unsigned)n_items, kThreads, 0, st>>>(in, a1, s8, vals, sw,
+                                                        bb, xx, aa, cc, m, S);
   return (int)cudaGetLastError();
 }

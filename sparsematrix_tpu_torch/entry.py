@@ -29,7 +29,7 @@ def entry(device=None):
     c = torch.from_numpy(gen_matrix_random(rng, m, n)).to(dev)
     idx_mtx, table = gen_sparse_index_matrix(rng, k, n, density=0.25,
                                              table_size=255)
-    # CodebookDense → fused dequant + product kernel on the card
+    # CodebookDense → the table lookup and one dense product (the JAX route)
     b_t = CodebookDense.from_index_matrix(idx_mtx, table, trans=True,
                                           device=dev)
 

@@ -35,7 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
 from .spmv_dualgather import _put
@@ -346,13 +346,14 @@ _SELL_ARGTYPES = (
 _ROWPURE_ARGTYPES = (
     ctypes.c_void_p,  # s_idx (n_groups, group*8, 128) int8
     ctypes.c_void_p,  # vals fp32 or bf16
-    ctypes.c_void_p,  # group_tile (n_groups,) int32
+    ctypes.c_void_p,  # run_ptr (n_runs+1,) int32
+    ctypes.c_void_p,  # run_tile (n_runs,) int32
     ctypes.c_void_p,  # slab_win (n_groups, group) int32
     ctypes.c_void_p,  # x (cols,) fp32
     ctypes.c_void_p,  # y (rows,) fp32, zeroed
     ctypes.c_int,  # rows
     ctypes.c_int,  # cols
-    ctypes.c_longlong,  # n_groups
+    ctypes.c_longlong,  # n_runs
     ctypes.c_int,  # group
     ctypes.c_int,  # rows_per_sublane
     ctypes.c_int,  # bf16 values
@@ -363,8 +364,8 @@ _ROWPURE_ARGTYPES = (
 def _launch(symbol: str, planes, x: torch.Tensor, rows: int, cols: int,
             count: int, arg: Tuple[int, ...]) -> torch.Tensor:
     """Launches ``symbol`` of ``csrc/spmv_sell.cu`` and returns y in the
-    values' type.  ``planes`` = (index plane, vals, tile table, window
-    table)."""
+    values' type.  ``planes`` = (index plane, vals, then the int32 tables
+    the kernel takes)."""
     vals = planes[1]
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{symbol}: values must be fp32 or bf16 on the "
@@ -408,6 +409,41 @@ def _spmv_sell_cuda(packed: SellSpmv, x: torch.Tensor) -> torch.Tensor:
                    (packed.tr,))
 
 
+# a run holds at most this many slabs, and enough runs fill the card and
+# balance its SMs
+_RUN_SLABS = 16
+_RUNS_WANTED = 4096
+
+
+def _rowpure_runs_build(packed: SellRowPure):
+    """(run_ptr (n_runs+1,), run_tile (n_runs,)) int32 on the pack's
+    device: the groups cut into runs of consecutive groups of one tile, in
+    ``group_tile`` order, each of at most ``L`` groups, ``L`` the smallest
+    that keeps the runs near ``_RUNS_WANTED`` (at most ``_RUN_SLABS`` slabs
+    a run).  ``run_ptr`` ends with n_groups."""
+    gt = packed.group_tile.cpu().numpy().astype(np.int64)
+    n_groups = gt.size
+    L = max(1, min(-(-n_groups // _RUNS_WANTED),
+                   _RUN_SLABS // packed.group))
+    tile_ptr = np.searchsorted(gt, np.arange(packed.n_tiles + 1))
+    n_runs = -(-np.diff(tile_ptr) // L)
+    run_tile = np.repeat(np.arange(packed.n_tiles), n_runs)
+    first = np.concatenate([[0], np.cumsum(n_runs)])[:-1]
+    run_start = (tile_ptr[run_tile]
+                 + L * (np.arange(run_tile.size) - first[run_tile]))
+    dev = packed.group_tile.device
+    return (_put(np.append(run_start, n_groups), torch.int32, dev),
+            _put(run_tile, torch.int32, dev))
+
+
+_RUNS: dict = {}
+
+
+def rowpure_runs(packed: SellRowPure):
+    """The pack's runs (``_rowpure_runs_build``), built once per pack."""
+    return cached_on(_RUNS, packed, _rowpure_runs_build)
+
+
 def _spmv_sell_rowpure_cuda(packed: SellRowPure,
                             x: torch.Tensor) -> torch.Tensor:
     rows, cols = packed.shape
@@ -421,10 +457,16 @@ def _spmv_sell_rowpure_cuda(packed: SellRowPure,
             or packed.group_tile.shape != (n_groups,)
             or packed.slab_win.numel() != n_groups * group):
         raise ValueError("spmv_sell_rowpure: inconsistent pack planes")
+    bf16 = packed.vals.dtype == torch.bfloat16
+    if (packed.vals.data_ptr() % (8 if bf16 else 16)
+            or packed.s_idx.data_ptr() % 4):
+        raise ValueError("spmv_sell_rowpure: the planes must be aligned "
+                         "for 4-cell loads")
+    run_ptr, run_tile = rowpure_runs(packed)
     return _launch("spmv_sell_rowpure",
-                   (packed.s_idx, packed.vals, packed.group_tile,
-                    packed.slab_win), x, rows, cols, n_groups,
-                   (group, packed.rows_per_sublane))
+                   (packed.s_idx, packed.vals, run_ptr, run_tile,
+                    packed.slab_win), x, rows, cols, run_tile.numel(),
+                   (packed.group, packed.rows_per_sublane))
 
 
 def _on_cpu(packed, x: torch.Tensor) -> bool:

@@ -36,7 +36,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
 
@@ -396,21 +396,27 @@ def _slab_cols(s_idx, slab_win, n_x):
     return col.clamp(max=n_x - 1), col < n_x
 
 
+def _slab_sums(plan: TriWavesPlan, s0: int, s1: int,
+               x: torch.Tensor) -> torch.Tensor:
+    """Per slab of [s0, s1) and lane, ``Σ_u vals · x[column]`` (n, 128)
+    fp32."""
+    si = plan.s_idx.reshape(-1, 8, _LANES)[s0:s1]
+    col, ok = _slab_cols(si, plan.slab_win[s0:s1], x.shape[0])
+    vv = plan.vals.reshape(-1, 8, _LANES)[s0:s1].float()
+    return (vv * torch.where(ok, x[col], 0.0)).sum(1)
+
+
 def _binv_plain(plan: TriWavesPlan, bp: torch.Tensor) -> torch.Tensor:
     """Wave by wave: u = b_wave − (cross-wave slab gather of the solved
     prefix, per tile), x_wave = u · a1[wave]."""
     m, B = plan.m, plan.m * _LANES
-    N = plan.S * _LANES
-    x = torch.zeros(N, dtype=torch.float32, device=bp.device)
-    si = plan.s_idx.reshape(-1, 8, _LANES)
-    vv = plan.vals.reshape(-1, 8, _LANES)
+    x = torch.zeros(plan.S * _LANES, dtype=torch.float32, device=bp.device)
     ptr = _ptr(plan.group_wave, plan.n_waves).tolist()
     for i in range(plan.n_waves):
-        sl = slice(ptr[i] * plan.group, ptr[i + 1] * plan.group)
-        col, ok = _slab_cols(si[sl], plan.slab_win[sl], N)
-        contrib = (vv[sl].float() * torch.where(ok, x[col], 0.0)).sum(1)
+        s0, s1 = ptr[i] * plan.group, ptr[i + 1] * plan.group
         acc = torch.zeros(m, _LANES, dtype=torch.float32, device=bp.device)
-        acc.index_add_(0, plan.slab_tloc[sl].long(), contrib)
+        acc.index_add_(0, plan.slab_tloc[s0:s1].long(),
+                       _slab_sums(plan, s0, s1, x))
         u = bp[i * B:(i + 1) * B] - acc.reshape(-1)
         x[i * B:(i + 1) * B] = u @ plan.a1[i].float()
     return x
@@ -432,19 +438,17 @@ _CHAIN_ARGTYPES = (
     ctypes.c_void_p,  # stream
 )
 _BINV_ARGTYPES = (
+    ctypes.c_void_p,  # items (n_items, 12) int32, ticket order
+    ctypes.c_int,  # n_items
     ctypes.c_void_p,  # a1
     ctypes.c_void_p,  # s_idx int8
     ctypes.c_void_p,  # vals
     ctypes.c_void_p,  # slab_win int32
-    ctypes.c_void_p,  # slab_tloc int32
-    ctypes.c_void_p,  # wave_ptr (n_waves+1,) int32
     ctypes.c_void_p,  # b fp32
     ctypes.c_void_p,  # x fp32 out, zeroed
-    ctypes.c_void_p,  # u fp32 scratch
-    ctypes.c_void_p,  # sync (2 + n_waves*m,) int32, zeroed
-    ctypes.c_int,  # n_waves
+    ctypes.c_void_p,  # acc fp32 scratch, zeroed
+    ctypes.c_void_p,  # counters (1 + n_waves*(1 + m),) int32, zeroed
     ctypes.c_int,  # m
-    ctypes.c_int,  # group
     ctypes.c_int,  # S
     ctypes.c_int,  # bf16 planes
     ctypes.c_void_p,  # stream
@@ -490,6 +494,141 @@ def _chain_cuda(plan: TriWavesPlan, b: torch.Tensor, rhs: int) -> torch.Tensor:
     return x
 
 
+# ---------------------------------------------------------------------------
+# binv's work list: the solve as items drawn in ticket order
+# ---------------------------------------------------------------------------
+#
+# Item kinds: a gather adds the sums of a run of one tile's slabs (one or
+# more windows of earlier waves' columns) into that tile's fp32
+# accumulator; a product adds u_q · a1[i][q, p] into x_p for one block
+# q <= p of wave i (a1 = inv(D_i)^T is block upper triangular, so blocks
+# q > p are exact zeros and have no item), with u_q = b_q − acc_q − (the
+# sums of tile q's late slabs, which the product gathers itself).  A
+# slab is late when it reads the window of wave i − 1: at most
+# ``_FOLD_SLABS`` of a tile are folded into its products that way, so a
+# wave's critical path is one hop (wave i − 1's commit, then the
+# products of wave i) and not two.
+#
+# Counters (int32): [0] the ticket; [1 + i] the finished products of wave
+# i (m(m+1)/2 commit it); [1 + n_waves + t] the finished gathers of tile t.
+# An item waits until every counter of [wait_lo, wait_hi) reaches
+# ``target`` and every counter of [waves_lo, waves_hi) reaches m(m+1)/2,
+# then adds 1 to counter ``signal``.  A slab of window w in wave i needs
+# waves max(0, 8w/m) .. min(8(w+1)/m, i) − 1 (windows are 1024 columns,
+# waves 128·m rows); a product of (i, q, p) needs every gather of tile
+# (i, q) and the waves its folded slabs read.
+#
+# Order (the ticket order): items sort by the last wave whose commit they
+# may wait on: the products of wave k + 1 (the critical ones; after the
+# late gathers of its tiles that were too many to fold), then the gathers
+# that wait on wave k at the latest (those of the nearest waves first),
+# then the products of wave k + 2, and so on.  Every counter an
+# item waits on is raised only by items of lower tickets, which is what
+# keeps the walk free of deadlock.
+_PRODUCT, _GATHER = 0, 1  # item kinds
+(_KIND, _TILE, _TILE_Q, _WAVE, _SLAB_A, _SLAB_B, _WAIT_LO, _WAIT_HI,
+ _TARGET, _WAVES_LO, _WAVES_HI, _SIGNAL) = range(12)
+# slabs of windows committed this many waves (or more) before the wave's
+# own front share gather items of their tile; later windows get their own
+_LATE_WAVES = 3
+# most slabs a gather item takes: short items finish within the slack
+# their early windows give them, where long ones reach the critical path
+_ITEM_SLABS = 8
+_FOLD_SLABS = 8  # most late slabs of a tile its products gather themselves
+
+
+def _binv_items_build(plan: TriWavesPlan) -> np.ndarray:
+    """The work list of a binv plan, (n_items, 12) int32 in ticket order
+    (the fields above).  Each wave's trailing all-zero slabs (the packer's
+    padding) are in no item."""
+    m, n_waves, group = plan.m, plan.n_waves, plan.group
+    per = 8 // m  # waves a window spans
+    n_slabs = plan.slab_win.shape[0]
+    wave = np.repeat(plan.group_wave.cpu().numpy().astype(np.int64), group)
+    win = plan.slab_win.cpu().numpy().astype(np.int64)
+    tloc = plan.slab_tloc.cpu().numpy().astype(np.int64)
+    nz = (plan.vals.reshape(n_slabs, -1) != 0).any(1).cpu().numpy()
+    last = np.full(n_waves, -1, np.int64)
+    np.maximum.at(last, wave[nz], np.nonzero(nz)[0])
+    s = np.nonzero(np.arange(n_slabs) <= last[wave])[0]
+    wv, w, p = wave[s], win[s], tloc[s]
+    tile = wv * m + p
+    ready = np.minimum(per * (w + 1), wv) - 1  # last wave the slab reads
+    # a tile's late slabs are the tail of its run (windows ascend)
+    late = ready == wv - 1
+    n_late = np.bincount(tile[late], minlength=n_waves * m)
+    fold = late & (n_late[tile] <= _FOLD_SLABS)
+    fa = np.zeros(n_waves * m, np.int64)  # each tile's folded slabs
+    fb = np.zeros(n_waves * m, np.int64)
+    flo = np.zeros(n_waves * m, np.int64)  # the first wave they read
+    if fold.any():
+        fs, ft = s[fold], tile[fold]
+        np.maximum.at(fb, ft, fs + 1)
+        fa[:] = fb
+        np.minimum.at(fa, ft, fs)
+        flo[:] = n_waves
+        np.minimum.at(flo, ft, per * w[fold])
+    # gathers: runs of one (tile, class), cut every _ITEM_SLABS slabs
+    keep = ~fold
+    s, wv, w, tile, ready = s[keep], wv[keep], w[keep], tile[keep], ready[keep]
+    cls = np.where(ready >= wv - _LATE_WAVES, ready, -1)
+    key_new = np.ones(s.size, bool)
+    key_new[1:] = ((tile[1:] != tile[:-1]) | (cls[1:] != cls[:-1])
+                   | (s[1:] != s[:-1] + 1))
+    run0 = np.maximum.accumulate(np.where(key_new, np.arange(s.size), 0))
+    first = key_new | ((np.arange(s.size) - run0) % _ITEM_SLABS == 0)
+    starts = np.nonzero(first)[0]
+    ends = np.append(starts[1:], s.size)[:starts.size] - 1  # last slabs
+    g_tile = tile[starts]
+    g_ready = ready[ends]
+    gather = np.zeros((starts.size, 12), np.int64)
+    gather[:, _KIND] = _GATHER
+    gather[:, _TILE] = gather[:, _TILE_Q] = g_tile
+    gather[:, _WAVE] = wv[starts]
+    gather[:, _SLAB_A] = s[starts]
+    gather[:, _SLAB_B] = s[ends] + 1
+    gather[:, _WAVES_LO] = 1 + per * w[starts]
+    gather[:, _WAVES_HI] = 2 + g_ready
+    gather[:, _SIGNAL] = 1 + n_waves + g_tile
+    qi, pi = np.triu_indices(m)  # blocks q <= p
+    i = np.repeat(np.arange(n_waves), qi.size)
+    tq = i * m + np.tile(qi, n_waves)
+    product = np.zeros((i.size, 12), np.int64)
+    product[:, _KIND] = _PRODUCT
+    product[:, _TILE] = i * m + np.tile(pi, n_waves)
+    product[:, _TILE_Q] = tq
+    product[:, _WAVE] = i
+    product[:, _SLAB_A] = fa[tq]
+    product[:, _SLAB_B] = fb[tq]
+    product[:, _WAIT_LO] = 1 + n_waves + tq
+    product[:, _WAIT_HI] = 2 + n_waves + tq
+    product[:, _TARGET] = np.bincount(g_tile, minlength=n_waves * m)[tq]
+    folded = fb[tq] > fa[tq]
+    product[:, _WAVES_LO] = np.where(folded, 1 + flo[tq], 0)
+    product[:, _WAVES_HI] = np.where(folded, 1 + i, 0)
+    product[:, _SIGNAL] = 1 + i
+    items = np.concatenate([product, gather])
+    # sort: the last wave waited on, then a wave's unfolded late gathers,
+    # its products, the other gathers; then wave, tile, tile q
+    after = np.concatenate([i - 1, g_ready])
+    rank = np.concatenate([np.ones(i.size, np.int64),
+                           np.where(g_ready == wv[starts] - 1, 0, 2)])
+    order = np.lexsort((items[:, _TILE_Q], items[:, _TILE], items[:, _WAVE],
+                        rank, after))
+    return items[order].astype(np.int32)
+
+
+_ITEMS: dict = {}
+
+
+def binv_items(plan: TriWavesPlan) -> torch.Tensor:
+    """``_binv_items_build(plan)`` on the plan's device, built once per
+    plan (kept with its ``vals`` plane, which a plan replaced in other
+    fields shares)."""
+    return cached_on(_ITEMS, plan.vals, lambda v: torch.from_numpy(
+        _binv_items_build(plan)).to(v.device))
+
+
 def _binv_cuda(plan: TriWavesPlan, bp: torch.Tensor) -> torch.Tensor:
     _check_planes(plan, bp, "trisolve_binv")
     S, m, B = plan.S, plan.m, plan.m * _LANES
@@ -502,21 +641,21 @@ def _binv_cuda(plan: TriWavesPlan, bp: torch.Tensor) -> torch.Tensor:
             or plan.group_wave.shape != (n_groups,)
             or plan.slab_win.shape != (n_groups * plan.group,)
             or plan.slab_tloc.shape != plan.slab_win.shape
-            or S < plan.n_waves * m or bp.dtype != torch.float32
+            or S < plan.n_waves * m or S * _LANES >= 2 ** 31
+            or bp.dtype != torch.float32
             or bp.shape != (S * _LANES,) or not bp.is_contiguous()):
         raise ValueError("trisolve_binv: inconsistent plan planes or b")
-    wave_ptr = _ptr(plan.group_wave, plan.n_waves)
+    items = binv_items(plan)
     x = torch.zeros_like(bp)
-    u = torch.empty_like(bp)
-    sync = torch.zeros(2 + plan.n_waves * m, dtype=torch.int32,
+    acc = torch.zeros_like(bp)
+    sync = torch.zeros(1 + plan.n_waves * (1 + plan.m), dtype=torch.int32,
                        device=bp.device)
     fn = _build.load("trisolve_waves", _BINV_ARGTYPES, "trisolve_binv")
     with torch.cuda.device(bp.device):
-        err = fn(plan.a1.data_ptr(), plan.s_idx.data_ptr(),
-                 plan.vals.data_ptr(), plan.slab_win.data_ptr(),
-                 plan.slab_tloc.data_ptr(), wave_ptr.data_ptr(),
-                 bp.data_ptr(), x.data_ptr(), u.data_ptr(), sync.data_ptr(),
-                 plan.n_waves, m, plan.group, S,
+        err = fn(items.data_ptr(), items.shape[0], plan.a1.data_ptr(),
+                 plan.s_idx.data_ptr(), plan.vals.data_ptr(),
+                 plan.slab_win.data_ptr(), bp.data_ptr(), x.data_ptr(),
+                 acc.data_ptr(), sync.data_ptr(), plan.m, plan.S,
                  int(plan.a1.dtype == torch.bfloat16),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -28,10 +28,13 @@ included) or a ``SkewSpmv`` from ``prepare_spmv``, and a ``SlicedEllMM``.
 The SpMV-only layouts (rowlane, the rowlane superblock, SELL) raise
 ``TypeError``, as in the JAX package.
 
-One routing differs on purpose: a ``CodebookDense`` goes to the
-hand-written fused dequantize + product kernel (``kernels/codebook.py``),
-where the JAX package sends it to XLA's lookup + dot
-(``spmm.py:421-429``).  Formats and routes of the JAX package that the
+A ``CodebookDense`` takes the JAX package's route too: its plain table
+lookup and one dense product (``_spmm_codebook_dense_plain``, the twin of
+``_spmm_codebook_dense_jnp``), which the JAX ``_pallas_impl`` picks over
+its Pallas kernel (``spmm.py:421-429``), as the lookup beats the port's
+fused kernel on the card (PERF.md, kernel row 1).  That kernel stays
+callable by name (``kernels/codebook.py``'s ``codebook_spmm`` and
+``codebook_matmul``).  Formats and routes of the JAX package that the
 port does not have yet raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -45,7 +48,6 @@ from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
 from ..formats.base import cached_on
 from ..kernels.bsr import (small_blocks, spmm_bsr, spmm_bsr_grouped_reference,
                            takes_kernel)
-from ..kernels.codebook import codebook_spmm
 from ..kernels.spmm_blocked_ell import (spmm_blocked_ell,
                                         spmm_blocked_ell_reference)
 from ..kernels.spmm_dualgather import spmm_dualgather
@@ -141,10 +143,6 @@ _PLAIN_IMPLS = {
 }
 
 
-def _spmm_codebook_dense_kernel(A: CodebookDense, X):
-    return codebook_spmm(A.idx, A.val_table, X)
-
-
 def bsr_dispatch(A: BSR, X):
     """The JAX package's ``bsr_dispatch`` (``ops/spmm.py:433-450``):
     MXU-sized blocks the grouped kernel; small blocks the panel kernel
@@ -154,13 +152,15 @@ def bsr_dispatch(A: BSR, X):
     return spmm_bsr_grouped_reference(A, X)
 
 
-# formats whose product is a hand-written kernel (the twin of
-# ``_pallas_impl``); CodebookDense is the port's one routing difference
+# the twin of the JAX package's ``_pallas_impl``: the formats whose
+# product is a hand-written kernel where the JAX package's is a Pallas
+# kernel, and CodebookDense's plain lookup + product, which the JAX
+# package takes there in place of its Pallas kernel
 _KERNEL_IMPLS = {
     BlockedELL: spmm_blocked_ell,
-    CodebookDense: _spmm_codebook_dense_kernel,
     BSR: bsr_dispatch,
 }
+_ROUTE_IMPLS = {**_KERNEL_IMPLS, CodebookDense: _spmm_codebook_dense_plain}
 
 
 def spmm_reference(A, X):
@@ -193,8 +193,8 @@ def _should_densify(A) -> bool:
 
 
 # CodebookCSR → CodebookDense conversion cache: converting once per
-# container makes the default add_mat_mat/spmm path reach the fused kernel
-# with no caller-side preparation.  Entries leave with their container.
+# container makes the default add_mat_mat/spmm path reach the lookup +
+# product with no caller-side preparation.  Entries leave with their container.
 _CBD_CACHE: dict = {}
 
 
@@ -293,13 +293,13 @@ def spmm(A, X: torch.Tensor, method: str = "auto") -> torch.Tensor:
         # small blocks at densify-eligible density: one dense product of
         # the matrix materialized once
         return spmm_reference(_bsr_dense_of(A), X)
-    impl = _KERNEL_IMPLS.get(type(A))
+    impl = _ROUTE_IMPLS.get(type(A))
     if impl is not None:
         return impl(A, X)
     if method == "auto" and type(A) is CodebookCSR:
         bd = _codebook_dense_of(A)
         if bd is not None:
-            return spmm(bd, X)  # fused dequant + product kernel
+            return spmm(bd, X)  # the dequantized lookup + one product
     if method == "auto" and type(A) is CSR and not _should_densify(A):
         # band-local CSR: the strip batched product
         S = _strip_of(A)

@@ -18,6 +18,8 @@ port imports nothing of the JAX package).  Mirrors the reference harness:
     solver rows (``suite.py:1444-1461``).
   * ``triangular`` / ``tri_oracle`` — a diagonally dominant random
     triangular factor and its float64 ``spsolve_triangular`` solve.
+  * ``scattered_lower`` — the JAX bench's ``trisolve`` factor, a lower
+    factor of uniformly scattered entries.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ __all__ = [
     "poisson2d",
     "triangular",
     "tri_oracle",
+    "scattered_lower",
     "relative_check",
     "quantized_check",
     "REF_TOL",
@@ -195,3 +198,25 @@ def tri_oracle(sp, b, lower=True, unit=False):
         sp64.setdiag(1.0)
     return spla.spsolve_triangular(sp64.tocsr(),
                                    np.asarray(b, np.float64), lower=lower)
+
+
+def scattered_lower(n: int = 65536, nnz_row: int = 8):
+    """The JAX bench's ``trisolve`` factor (``bench/suite.py:1264-1278``)
+    at n = 65536: the strictly lower part of a uniformly random n×n
+    pattern of ``nnz_row`` entries a row (values in [0, 1)) plus 4·I; b
+    from ``default_rng(6)``, values in ±1000.  The bench draws the pattern
+    with ``sps.random``, which takes minutes at this n (it samples n²
+    positions without replacement); this draws the same law from
+    ``default_rng(6)`` with replacement, duplicates merged.  Returns
+    (scipy CSR, b)."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(6)
+    k = n * nnz_row
+    d = sps.coo_matrix((rng.random(k, dtype=np.float32),
+                        (rng.integers(0, n, k), rng.integers(0, n, k))),
+                       shape=(n, n)).tocsr()
+    d.sum_duplicates()
+    L = (sps.tril(d, k=-1).tocsr()
+         + sps.eye(n, format="csr", dtype=np.float32) * 4.0).tocsr()
+    return L, gen_matrix_random(rng, n, 1)[:, 0]

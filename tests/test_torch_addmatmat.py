@@ -159,3 +159,45 @@ def test_spmm_routes_and_refusals():
         spmm(A, X.T)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         spmm(object.__new__(type("ELL", (), {"shape": (64, 80)})), X)
+
+
+jspmm = importlib.import_module("sparsematrix_tpu.ops.spmm")
+
+
+@pytest.mark.parametrize("name", sorted(c.__name__ for c in jspmm._JNP_IMPLS))
+def test_spmm_routes_follow_jax_pallas_impl(name):
+    """Each format takes a hand-written kernel exactly where the JAX
+    package's ``_pallas_impl`` is a Pallas wrapper; where it is one of the
+    JAX plain products (``CodebookDense``'s lookup + dot), the port takes
+    that product's twin, on either device."""
+    jimpl = jspmm._pallas_impl(getattr(jf, name))
+    cls = getattr(tf, name)
+    route = spmm_mod._ROUTE_IMPLS.get(cls)
+    if jimpl is None:
+        assert route is None
+        return
+    kernel = jimpl not in jspmm._JNP_IMPLS.values()
+    assert (cls in spmm_mod._KERNEL_IMPLS) == kernel
+    if not kernel:
+        assert route is spmm_mod._PLAIN_IMPLS[cls]
+
+
+@pytest.mark.parametrize("fmt", ["CodebookCSR", "CodebookDense"])
+def test_codebook_add_mat_mat_takes_the_lookup(fmt, monkeypatch):
+    """``add_mat_mat`` through a codebook container never reaches the
+    fused kernel or its plain version, and matches the JAX package."""
+    cb = importlib.import_module("sparsematrix_tpu_torch.kernels.codebook")
+
+    def refuse(*args, **kw):
+        raise AssertionError("the codebook kernel was called")
+
+    monkeypatch.setattr(cb, "_codebook_spmm_cuda", refuse)
+    monkeypatch.setattr(cb, "codebook_spmm_reference", refuse)
+    a, c, idx, table = _workload(3)
+    port_b, jax_b = _b_t(fmt, idx, table)
+    got = add_mat_mat(torch.from_numpy(a), port_b, torch.from_numpy(c),
+                      1.0, 1.0).numpy()
+    want = np.asarray(jax_add_mat_mat(jnp.asarray(a), jax_b, jnp.asarray(c),
+                                      1.0, 1.0))
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())

@@ -310,8 +310,14 @@ def test_add_mat_mat_on_card_matches_cpu(dev, fmt):
         else:
             cls = CodebookCSR if fmt == "CodebookCSR" else CodebookDense
             b_t = cls.from_index_matrix(idx, table, trans=True, device=d)
+        _build.launch_counts.clear()
         out[str(d)] = add_mat_mat(torch.from_numpy(a).to(d), b_t,
                                   torch.from_numpy(c).to(d), 1.0, 1.0).cpu()
+        # a codebook container takes the lookup + one product, as in the
+        # JAX package: the fused kernel is not launched
+        assert _build.launch_counts["codebook_spmm"] == 0
+        assert _build.launch_counts["spmm_blocked_ell"] == (
+            fmt == "BlockedELL" and d == dev)
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
                                atol=1e-5 * scale)
@@ -573,6 +579,7 @@ WAVES_CARD = [
     (2500, 4, None, False, False, dict(m=8, dtype=torch.bfloat16), "binv",
      None),
     (1700, 3, None, True, False, dict(m=4), "binv", None),
+    (2000, 3, None, False, True, dict(mode="binv", m=1), "binv", None),
 ]
 
 
@@ -632,6 +639,47 @@ def test_trisolve_chain_256_waves(dev):
         (n, 8)).astype(np.float32)).to(dev)
     assert_solve_close(tw.trisolve_waves_apply_mm(plan, B),
                        tw.mm_forward_plain(plan, B))
+
+
+def _binv_card(dev, sp, **kw):
+    """The binv kernel on ``sp`` (lower) against its plain version and
+    the fp64 oracle, one launch."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(sp, device=dev),
+                                  mode="binv", **kw)
+    n = sp.shape[0]
+    b = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    before = _build.launch_counts["trisolve_binv"]
+    got = tw.trisolve_waves_apply(plan, bd)
+    assert _build.launch_counts["trisolve_binv"] == before + 1
+    assert_solve_close(got, tw.waves_forward_plain(plan, bd))
+    np.testing.assert_allclose(got.cpu().numpy(), tri_oracle(sp, b),
+                               rtol=2e-3, atol=1e-3)
+    return plan
+
+
+def test_trisolve_binv_256_waves(dev):
+    """The scattered factor at n = 262144, m = 8: 256 waves, some 15 000
+    work items, far more than the card holds blocks at once."""
+    from sparsematrix_tpu_torch.utils.testutils import scattered_lower
+
+    sp, _ = scattered_lower(262144)
+    plan = _binv_card(dev, sp, m=8)
+    assert plan.n_waves == 256
+
+
+def test_trisolve_binv_empty_waves(dev):
+    """Waves 2, 3 and 5 (m = 1) hold no cross-wave entry: their groups are
+    all padding and their products wait on no gather."""
+    import scipy.sparse as sps
+
+    sp = triangular(1200, 4, band=300, seed=9).tocoo()
+    wave = sp.row // 128
+    keep = ~np.isin(wave, (2, 3, 5)) | (sp.col // 128 == wave)
+    _binv_card(dev, sps.csr_matrix(
+        (sp.data[keep], (sp.row[keep], sp.col[keep])), shape=sp.shape), m=1)
 
 
 # (n, per_row, band, unit, lower, plan arguments)
@@ -841,6 +889,54 @@ def test_sell_rowpure_kernel(dev, R):
     _spmv_case(dev, _sparse(rng, (1100, 2100), 0.03), pack_sell_rowpure,
                spmv_sell_rowpure, spmv_sell_rowpure_reference,
                "spmv_sell_rowpure", group=3, rows_per_sublane=R)
+
+
+def _rowpure_shape(R, name):
+    """A dense matrix for the row-pure edge cases: ``empty-tiles`` (tiles
+    1-2 and the last one hold nothing, tile 0 is dense in every third
+    column: a tile of many groups), ``single-tile`` (8R - 3 rows) and
+    ``ragged`` (rows and columns not multiples of 8R or 1024)."""
+    rng = np.random.default_rng(50 + R)
+    if name == "single-tile":
+        return gen_random_dense_sparse(rng, 8 * R - 3, 2500, density=0.05)
+    rows = 8 * R * 6 + 5
+    d = gen_random_dense_sparse(rng, rows, 3000 if name == "empty-tiles"
+                                else 1500, density=0.01)
+    if name == "empty-tiles":
+        d[8 * R:24 * R] = 0
+        d[-8 * R - 5:] = 0
+        d[:8 * R, ::3] = rng.uniform(-1000, 1000, (8 * R, 1000))
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["empty-tiles", "single-tile", "ragged"])
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
+def test_sell_rowpure_kernel_shapes(dev, R, name, dtype):
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.kernels import (pack_sell_rowpure,
+                                                spmv_sell_rowpure,
+                                                spmv_sell_rowpure_reference)
+
+    d = _rowpure_shape(R, name)
+    P = pack_sell_rowpure(CSR.fromdense(d, device=dev), group=2,
+                          rows_per_sublane=R)
+    P = dataclasses.replace(P, vals=P.vals.to(dtype))
+    x = torch.from_numpy(np.random.default_rng(R).standard_normal(
+        d.shape[1]).astype(np.float32)).to(dev)
+    before = _build.launch_counts["spmv_sell_rowpure"]
+    got = spmv_sell_rowpure(P, x)
+    assert _build.launch_counts["spmv_sell_rowpure"] == before + 1
+    assert_kernel_close(got, spmv_sell_rowpure_reference(P, x))
+    sp64 = sps.csr_matrix(d).astype(np.float64)
+    if dtype == torch.bfloat16:
+        sp64.data = torch.from_numpy(sp64.data).to(dtype).double().numpy()
+        assert quantized_check(got.double().cpu().numpy(),
+                               sp64 @ x.double().cpu().numpy())
+    else:
+        assert relative_check(got.double().cpu().numpy(),
+                              sp64 @ x.double().cpu().numpy())
 
 
 def test_rowlane_legacy_sell_tail_kernel(dev):

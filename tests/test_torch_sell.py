@@ -250,3 +250,56 @@ def test_rowlane_legacy_sell_tail_matches_jax():
         got = fn(port, torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, want, **TOL)
         np.testing.assert_allclose(got, dense.astype(np.float64) @ x, **TOL)
+
+
+def _tile_heavy_case(R):
+    """A row-pure pack with empty tiles (rows 8R..24R-1 and the last
+    tiles hold nothing) and one tile of many groups (its rows dense)."""
+    rows, cols = 8 * R * 6 + 5, 3000
+    rng = np.random.default_rng(40 + R)
+    dense = gen_random_dense_sparse(rng, rows, cols, density=0.01)
+    dense[8 * R:24 * R] = 0
+    dense[-8 * R - 5:] = 0
+    dense[:8 * R, ::3] = rng.uniform(-1, 1, (8 * R, -(-cols // 3)))
+    return dense, rng.uniform(-1, 1, cols).astype(np.float32)
+
+
+@pytest.mark.parametrize("wanted", [tsell._RUNS_WANTED, 2])
+@pytest.mark.parametrize("R", [1, 2, 4, 8, 16])
+def test_rowpure_runs_cover_groups_in_order(R, wanted, monkeypatch):
+    """The runs the card kernel takes (``rowpure_runs``): every group
+    once, in ``group_tile`` order, each run within one tile and at most L
+    groups long; summed run by run in plain torch they give the plain
+    product."""
+    monkeypatch.setattr(tsell, "_RUNS_WANTED", wanted)
+    dense, x = _tile_heavy_case(R)
+    P = tsell.pack_sell_rowpure(smt.CSR.fromdense(dense, device=CPU),
+                                group=2, rows_per_sublane=R)
+    run_ptr, run_tile = (t.numpy() for t in tsell.rowpure_runs(P))
+    gt = P.group_tile.numpy()
+    n_groups = gt.size
+    L = max(1, min(-(-n_groups // wanted), tsell._RUN_SLABS // P.group))
+    assert run_ptr[0] == 0 and run_ptr[-1] == n_groups
+    assert (np.diff(run_ptr) >= 1).all() and (np.diff(run_ptr) <= L).all()
+    assert (np.diff(run_tile) >= 0).all()
+    for r in range(run_tile.size):
+        assert (gt[run_ptr[r]:run_ptr[r + 1]] == run_tile[r]).all()
+    tiles = P.tile_nonempty.numpy()
+    assert not tiles[1:3].any() and tiles[0]
+    assert set(run_tile) == set(np.nonzero(tiles)[0])
+    heavy = np.diff(run_ptr)[run_tile == 0].sum()
+    assert heavy > 2 and (run_tile == 0).sum() == -(-heavy // L)
+    # the kernel's sum, run by run: cells into their tile's rows
+    row, col = tsell._rowpure_slot_row_col(P)
+    xt = torch.from_numpy(x)
+    y = torch.zeros(P.n_tiles * 8 * R, dtype=torch.float64)
+    for r in range(run_tile.size):
+        g = slice(run_ptr[r], run_ptr[r + 1])
+        assert (row[g] // (8 * R) == run_tile[r]).all()
+        v = P.vals[g].double()
+        ok = (v != 0) & (col[g] < dense.shape[1])
+        y.index_add_(0, row[g][ok], v[ok] * xt.double()[col[g][ok]])
+    # the plain version sums in fp32: 1e-5 of the output's scale
+    want = tsell.spmv_sell_rowpure_reference(P, xt).double().numpy()
+    np.testing.assert_allclose(y[:dense.shape[0]].numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
