@@ -133,7 +133,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    solver cell the time of an iteration (a tol=0 run of 25 iterations,
    device and wall), iterations and ms to tol.  For the slice-5 kernels
    the yardstick is cuSPARSE SpMV/SpMM of the same CSR (for the pooled
-   tail, of the tail's own entries) and, for the octet SpMM, also the
+   tail, of the tail's own entries; its line also gives the tail's
+   groups, cells, fill and layout floor, the plane bytes at HBM's rate)
+   and, for the octet SpMM, also the
    port's k_tiles=1 dual-gather walk on the same matrix
    (``kt1_walk_ms``).  For the BSR kernels the yardstick is torch's BSR
    product, ``torch.sparse_bsr_tensor @ X`` (or cuSPARSE CSR where that
@@ -143,6 +145,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
+   For rows 2 and 12, ``variant`` lines time each knob setting and
+   ablation beside the default in the same call: the Blocked-ELL split
+   over blocks, staging alone, no zero-row skip, FMAs alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
+   tile (k = 32), no X gather, decode alone (an ablation's result is
+   not the product).
    ``timed_ms``, ``wall_ms`` and the peaks come from the package
    (``utils/timer.py``, ``utils/roofline.py``), so the bench suite and
    this script time the same way.
@@ -540,6 +547,18 @@ def plane_bytes(packed) -> int:
                          packed.group_tile, packed.slab_win)
                + ((packed.slab_tloc,) if packed.slab_tloc is not None
                   else ()))
+
+
+def tail_stats(tail) -> dict:
+    """The pooled tail's shape and its layout floor: every plane byte
+    (values, idxA, idxB, the chunk pointers) read once at HBM's rate."""
+    cells = tail.vals.numel()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (tail.vals, tail.idxA, tail.idxB, tail.ptr,
+                           tail.group_tile))
+    return {"n_groups": tail.idxB.shape[0], "group": tail.group,
+            "cells": cells, "fill": tail.nnz / cells, "plane_bytes": nbytes,
+            "layout_floor_ms": nbytes / PEAK_BYTES * 1e3}
 
 
 # the probe kernels' entries of the kernels line: (kernel, source,
@@ -1358,7 +1377,8 @@ def main() -> int:
         s5_check("spmv_pooled",
                  f"XL tail (spill_cap=auto) k_tiles=8 k={k_rhs}",
                  lambda rhs=rhs: run_tail(rhs),
-                 lambda rhs=rhs: dgmod.pooled_plain(tail8, rhs), sp_tail, rhs)
+                 lambda rhs=rhs: dgmod.pooled_plain(tail8, rhs), sp_tail, rhs,
+                 tail=tail8)
     for case, got_fn, plain_fn, want in [
             ("XL spill k_tiles=1 spmv (body + tail)",
              lambda: dgmod._spmv_dualgather_cuda(P_sp1, x_xl),
@@ -2447,13 +2467,68 @@ def main() -> int:
         emit({"phase": "timing", **row})
         return row
 
+    def variant(kernel, case, name, ms, base):
+        """A knob setting or an ablation of a kernel beside its default
+        (``base``, this run's timing line), in the same call."""
+        emit({"phase": "variant", "kernel": kernel, "case": case,
+              "variant": name, "ms": ms, "default_ms": base["ms"],
+              "ratio": ms / base["ms"]})
+
+    def bell_variants(label, bell, X, row, splits):
+        # row 2's split over blocks (the knob), then what sets its pace:
+        # staging alone (no FMA), no skip of zero rows, FMAs alone (no
+        # staging); the ablations' results are not A @ X
+        for sp in splits:
+            variant("spmm_blocked_ell", label, f"split={sp}",
+                    dev_ms(lambda sp=sp: _spmm_blocked_ell_cuda(
+                        bell, X, split=sp)), row)
+        for mode, name in ((1, "staging only (no FMA)"),
+                           (2, "no zero-row skip"),
+                           (6, "FMA only (no staging), no zero-row skip")):
+            variant("spmm_blocked_ell", label, name,
+                    dev_ms(lambda mode=mode: _spmm_blocked_ell_cuda(
+                        bell, X, mode=mode)), row)
+
+    def tail_variants(label, tail, rhs, row):
+        # row 12's work knob (rows a warp at k = 1, blocks a tile at
+        # k > 1), then what sets its pace: no X gather, decode only; the
+        # ablations' results are not T @ X.  Each call zeroes its Y first,
+        # as the timing line's does
+        k_rhs = rhs.shape[1]
+
+        def run(**kw):
+            Y = torch.zeros((tail.shape[0], k_rhs), dtype=torch.float32,
+                            device=rhs.device)
+            dgmod.launch_pooled(tail, rhs, Y, **kw)
+            return Y
+
+        Yk = torch.zeros((tail.shape[0], k_rhs), dtype=torch.float32,
+                         device=rhs.device)
+        # the kernel alone, into a Y that is already there (its values
+        # grow over the calls; only the time is read)
+        variant("spmv_pooled", label, "kernel alone (no zeroed Y)",
+                dev_ms(lambda: dgmod.launch_pooled(tail, rhs, Yk)), row)
+        works = (8, 16, 32, 64) if k_rhs == 1 else (1, 2, 4)
+        for wk in works:
+            variant("spmv_pooled", label,
+                    f"work={wk} ({'rows a warp' if k_rhs == 1 else 'blocks a tile'})",
+                    dev_ms(lambda wk=wk: run(work=wk)), row)
+        modes = ((1, "no X gather"),) + (((2, "decode only"),)
+                                         if k_rhs > 1 else ())
+        for mode, name in modes:
+            variant("spmv_pooled", label, name,
+                    dev_ms(lambda mode=mode: run(mode=mode)), row)
+
     cb_main = time_codebook(f"{m}x{n}x{k} float32 X=a.T", b_dns, a.T)
     time_codebook(f"{m}x{n}x{k} bfloat16 X=a.T", b_dns,
                   a.to(torch.bfloat16).T)
     time_codebook(f"4096x{n}x{k} float32 X=a.T", b_dns, a4.T)
     bell_main = time_bell(main_bell_case, b_bell, bt_dense, a.T)
+    bell_variants(main_bell_case, b_bell, a.T, bell_main, (4, 8, 16, 32))
     for label, dense, bell, X in bell_inputs:
-        time_bell(label, bell, dense, X)
+        row = time_bell(label, bell, dense, X)
+        if bell.block_shape[0] < 32:
+            bell_variants(label, bell, X, row, (1, 2, 4, 8))
 
     def cusparse(sp):
         # the same CSR in fp32 as a torch sparse tensor: the yardstick
@@ -2720,8 +2795,12 @@ def main() -> int:
                 row["kt1_walk_ms"] = dev_ms(
                     lambda W=extra["walk"], rhs=rhs:
                     _spmm_dualgather_cuda(W, rhs))
+            if extra.get("tail") is not None:
+                row.update(tail_stats(extra["tail"]))
             emit({"phase": "timing", **row})
             s5_rows[(kname, case)] = row
+            if extra.get("tail") is not None:
+                tail_variants(case, extra["tail"], rhs, row)
     # the spill-cap packs and the SELL packs through the public spmv,
     # beside the auto pack of the same XL CSR; BiCGSTAB's iteration
     for label, run in [

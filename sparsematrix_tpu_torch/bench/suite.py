@@ -26,7 +26,7 @@ How the twins differ, each for a reason the JAX suite does not have:
   codebook kernel (table row 1, ``csrc/codebook_spmm.cu``) under the JAX
   row names; ``calibrate/hbm-stream`` runs row 22 (``csrc/stream_copy.cu``).
 - ``spgemm``'s ``dist-packed-1shard`` row needs ``parallel/dist_spgemm``,
-  which the port does not have yet (ROADMAP Queue 1 item 8b): the group
+  which the port does not have yet (ROADMAP Queue 1 item 4): the group
   has every other row.
 """
 from __future__ import annotations
@@ -918,7 +918,7 @@ def bench_spgemm(check=True, n=2048, density=0.01, **kw):
     r4.sol_frac = r4.nnz_per_s / sol
     rows.append(r4)
     # (the JAX group's dist-packed-1shard row needs parallel/dist_spgemm,
-    # not ported yet: ROADMAP Queue 1 item 8b)
+    # not ported yet: ROADMAP Queue 1 item 4)
     return rows
 
 

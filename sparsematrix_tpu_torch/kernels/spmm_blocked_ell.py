@@ -39,6 +39,9 @@ _ARGTYPES = (
     ctypes.c_int,  # nrhs
     ctypes.c_void_p,  # stream
 )
+# spmm_blocked_ell_tuned: the same, then split and mode before the stream
+_TUNED_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p)
 
 
 def _padded_x(A: BlockedELL, X: torch.Tensor, dtype) -> torch.Tensor:
@@ -63,7 +66,13 @@ def spmm_blocked_ell_reference(A: BlockedELL, X: torch.Tensor) -> torch.Tensor:
     return acc.reshape(nbr * bm, X.shape[1])[: A.shape[0]].to(dt)
 
 
-def _spmm_blocked_ell_cuda(A: BlockedELL, X: torch.Tensor) -> torch.Tensor:
+def _spmm_blocked_ell_cuda(A: BlockedELL, X: torch.Tensor, *, split: int = 0,
+                           mode: int = 0) -> torch.Tensor:
+    """The kernel.  For block heights below 32, ``split`` (blocks a tile
+    summing into one output tile; 0: the kernel's choice) and ``mode``
+    (the ablations of ``csrc/spmm_blocked_ell.cu``: 1 stages every chunk
+    but does no FMA, 2 skips no zeros, 6 stages nothing; 1 and 6 do not
+    give A @ X) are knobs for measurements only."""
     blocks, bcols = A.blocks, A.block_cols
     if not (X.is_cuda and blocks.device == X.device and bcols.device == X.device):
         raise ValueError("spmm_blocked_ell: A and X must lie on one CUDA device")
@@ -89,11 +98,15 @@ def _spmm_blocked_ell_cuda(A: BlockedELL, X: torch.Tensor) -> torch.Tensor:
     if nrows == 0 or nrhs == 0:
         return out
     X, ldx, kmajor = x_layout(X)
-    fn = _build.load("spmm_blocked_ell", _ARGTYPES)
+    tuned = split != 0 or mode != 0
+    fn = _build.load("spmm_blocked_ell",
+                     _TUNED_ARGTYPES if tuned else _ARGTYPES,
+                     "spmm_blocked_ell_tuned" if tuned else None)
+    knobs = (int(split), int(mode)) if tuned else ()
     with torch.cuda.device(X.device):
         err = fn(bcols.data_ptr(), blocks.data_ptr(), X.data_ptr(), ldx,
                  int(kmajor), int(X.dtype == torch.bfloat16), out.data_ptr(),
-                 nrows, ncols, nbr, M, bm, bk, nrhs,
+                 nrows, ncols, nbr, M, bm, bk, nrhs, *knobs,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

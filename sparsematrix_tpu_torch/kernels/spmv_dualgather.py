@@ -1045,12 +1045,19 @@ _POOLED_ARGTYPES = (
     ctypes.c_int,  # bf16 values
     ctypes.c_void_p,  # stream
 )
+# spmv_pooled_tuned: the same, then work and mode before the stream
+_POOLED_TUNED_ARGTYPES = (_POOLED_ARGTYPES[:-1]
+                          + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
-def launch_pooled(tail: PooledDG, X: torch.Tensor, Y: torch.Tensor) -> None:
+def launch_pooled(tail: PooledDG, X: torch.Tensor, Y: torch.Tensor, *,
+                  work: int = 0, mode: int = 0) -> None:
     """Launches ``csrc/spmv_pooled.cu``: ``Y += T @ X`` over the pooled
     tail, all k columns of X (cols, k) at once, Y (rows, k) fp32, both
-    contiguous on the tail's CUDA device."""
+    contiguous on the tail's CUDA device.  ``work`` (rows a warp at k = 1,
+    blocks a tile at k > 1; 0: the kernel's choice) and ``mode`` (1: read
+    1 for every X element; 2, k > 1: decode only; Y is then not T @ X)
+    are knobs for measurements only."""
     planes = (tail.ptr, tail.idxA, tail.idxB, tail.vals, tail.group_tile)
     if not all(t.device == X.device and t.is_contiguous()
                for t in planes + (X, Y)):
@@ -1066,15 +1073,24 @@ def launch_pooled(tail: PooledDG, X: torch.Tensor, Y: torch.Tensor) -> None:
             or tail.ptr.shape != (n_groups, group, 8)
             or tail.group_tile.shape != (n_groups,)):
         raise ValueError("spmv_pooled: inconsistent tail planes")
+    # the kernel reads a row's values as 16-byte words, its index bytes as
+    # 4-byte words
+    if any(t.data_ptr() % 16 for t in planes[:4]):
+        raise ValueError("spmv_pooled: the tail's planes must be 16-byte "
+                         "aligned")
     rows, cols = tail.shape
     k = X.shape[1]
     if rows == 0 or cols == 0 or k == 0:
         return
-    fn = _build.load("spmv_pooled", _POOLED_ARGTYPES)
+    tuned = work != 0 or mode != 0
+    fn = _build.load("spmv_pooled",
+                     _POOLED_TUNED_ARGTYPES if tuned else _POOLED_ARGTYPES,
+                     "spmv_pooled_tuned" if tuned else None)
+    knobs = (int(work), int(mode)) if tuned else ()
     with torch.cuda.device(X.device):
         err = fn(*(t.data_ptr() for t in planes), X.data_ptr(), Y.data_ptr(),
                  rows, cols, k, n_groups, group,
-                 int(tail.vals.dtype == torch.bfloat16),
+                 int(tail.vals.dtype == torch.bfloat16), *knobs,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_pooled: launch failed with CUDA error {err}")

@@ -1,5 +1,5 @@
 """Krylov solvers: CG, BiCGSTAB and block CG (``gmres``, ``lsqr`` and
-``lanczos`` are not ported yet: ROADMAP.md, Queue 1 item 8)."""
+``lanczos`` are not ported yet: ROADMAP.md, Queue 1 item 2)."""
 from .block import BlockSolveResult, block_cg
 from .krylov import SolveResult, bicgstab, cg
 

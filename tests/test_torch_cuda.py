@@ -138,6 +138,100 @@ def test_blocked_ell_kernel(dev, shape, block, nrhs, dtype):
         assert_kernel_close(got, spmm_blocked_ell_reference(A, x))
 
 
+# the row-group path (block heights below 32): several block-rows share
+# each staged X chunk; patterns whose unions are dense, banded or
+# block-diagonal, a block-row with only padding slots, a ragged last
+# block-row and ncols not a multiple of bk
+def _band_dense(rng, n, bs, offsets):
+    nb = -(-n // bs)
+    mask = np.zeros((nb, nb), bool)
+    for o in offsets:
+        idx = np.arange(max(0, -o), nb - max(0, o))
+        mask[idx, idx + o] = True
+    full = np.kron(mask, np.ones((bs, bs))).astype(np.float32)
+    return full[:n, :n] * gen_matrix_random(rng, n, n)
+
+
+BELL_ROWS_CARD = [
+    ("random", (333, 1000), (4, 128)),
+    ("random", (1023, 2047), (8, 128)),
+    ("random", (300, 260), (16, 64)),
+    ("banded", (1024, 1024), (8, 128)),
+    ("blockdiag", (1000, 1000), (8, 64)),
+]
+
+
+def _bell_rows_dense(pattern, shape, block, seed):
+    rng = np.random.default_rng(seed)
+    if pattern == "random":
+        dense = gen_random_dense_sparse(rng, *shape, density=0.1)
+    else:
+        offsets = (-1, 0, 1) if pattern == "banded" else (0,)
+        dense = _band_dense(rng, shape[0], 128, offsets)
+    dense[3 * block[0]: 4 * block[0]] = 0  # block-row 3: padding slots only
+    return rng, dense
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nrhs", [1, 7, 117, 128, 513])
+@pytest.mark.parametrize("case", BELL_ROWS_CARD,
+                         ids=lambda c: f"{c[0]}-{c[1][0]}x{c[1][1]}-{c[2]}")
+def test_blocked_ell_row_groups(dev, case, nrhs, dtype):
+    pattern, shape, block = case
+    rng, dense = _bell_rows_dense(pattern, shape, block, shape[0] + nrhs)
+    A = _bell(dense, block, dev, dtype)
+    X = torch.from_numpy(gen_matrix_random(rng, shape[1], nrhs)).to(dev, dtype)
+    blocks64 = A.blocks.double().cpu().numpy()
+    for name, x in (("row", X), ("kmajor", X.T.contiguous().T)):
+        before = _build.launch_counts["spmm_blocked_ell"]
+        got = spmm_blocked_ell(A, x)
+        assert _build.launch_counts["spmm_blocked_ell"] == before + 1, name
+        assert_kernel_close(got, spmm_blocked_ell_reference(A, x))
+        # the fp64 oracle of the stored (rounded) blocks
+        dense64 = np.zeros((A.block_cols.shape[0] * block[0],
+                            -(-shape[1] // block[1]) * block[1]))
+        for i, cols in enumerate(A.block_cols.cpu().numpy()):
+            for m_, c in enumerate(cols):
+                dense64[i * block[0]:(i + 1) * block[0],
+                        c * block[1]:(c + 1) * block[1]] += blocks64[i, m_]
+        x64 = x.double().cpu().numpy()
+        oracle = dense64[:shape[0], :shape[1]] @ x64
+        check = quantized_check if dtype == torch.bfloat16 else relative_check
+        assert check(got.double().cpu().numpy(), oracle), name
+
+
+@pytest.mark.parametrize("split", [1, 3, 16])
+def test_blocked_ell_row_group_splits(dev, split):
+    """The split knob: blocks that share an output tile sum into it."""
+    from sparsematrix_tpu_torch.kernels.spmm_blocked_ell import (
+        _spmm_blocked_ell_cuda)
+
+    rng, dense = _bell_rows_dense("random", (500, 777), (8, 128), split)
+    A = _bell(dense, (8, 128), dev)
+    X = torch.from_numpy(gen_matrix_random(rng, 777, 117)).to(dev)
+    for x in (X, X.T.contiguous().T):
+        assert_kernel_close(_spmm_blocked_ell_cuda(A, x, split=split),
+                            spmm_blocked_ell_reference(A, x))
+
+
+def test_blocked_ell_row_group_backward(dev):
+    """Gradients through the row-group path at (8, 128), card against CPU."""
+    rng = np.random.default_rng(21)
+    dense = gen_random_dense_sparse(rng, 260, 700, density=0.1)
+    X = rng.standard_normal((700, 33)).astype(np.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        A = _bell(dense, (8, 128), d)
+        blocks = A.blocks.clone().requires_grad_()
+        Xt = torch.from_numpy(X).to(d).requires_grad_()
+        Y = spmm_blocked_ell(dataclasses.replace(A, blocks=blocks), Xt)
+        (Y * Y).sum().backward()
+        grads[str(d)] = [t.grad.cpu() for t in (blocks, Xt)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
 def test_blocked_ell_kernel_refuses_mixed_types(dev):
     dense = gen_random_dense_sparse(np.random.default_rng(9), 16, 128, 0.2)
     A = _bell(dense, (8, 128), dev)
@@ -861,6 +955,94 @@ def test_pooled_tail_kernel(dev, case):
             assert _build.launch_counts["spmv_pooled"] == before + 1
             assert_kernel_close(Y, spmm_dualgather_reference(A, X))
             assert _oracle_ok(Y, sp, X, bf16)
+
+
+# the pooled tail alone, on a Y that already holds a sum (the body's): a
+# ragged last tile with several groups a tile, one tile of five groups, a
+# tail of one group, bf16 values; every column-pass edge of k; and the
+# same planes read as a matrix narrower than their chunks (cells past
+# ``cols`` are dropped)
+POOLED_ROWS = [
+    ((1100, 2100), 0.02, dict(spill_cap=8, group=4)),
+    ((120, 1000), 0.05, dict(spill_cap=4, group=8)),
+    ((100, 2000), 0.1, dict(spill_cap=8, group=32)),
+    ((300, 2500), 0.08, dict(spill_cap=8, dtype=torch.bfloat16)),
+]
+
+
+def _tail_oracle(tail, Y0, X):
+    """Y0 + T @ X in fp64 from the tail's cells (row, col, value)."""
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.kernels.spmv_dualgather import (
+        _slot_row_col_pooled)
+
+    rows, cols = tail.shape
+    row, col = (t.reshape(-1).cpu().numpy()
+                for t in _slot_row_col_pooled(tail))
+    val = tail.vals.double().reshape(-1).cpu().numpy()
+    keep = (val != 0) & (row < rows) & (col < cols)
+    T = sps.coo_matrix((val[keep], (row[keep], col[keep])), shape=(rows, cols))
+    return Y0.double().cpu().numpy() + T.tocsr() @ X.double().cpu().numpy()
+
+
+@pytest.mark.parametrize("k", [1, 3, 32, 33, 64])
+@pytest.mark.parametrize("case", POOLED_ROWS, ids=_dg_id)
+def test_pooled_tail_columns(dev, case, k):
+    from sparsematrix_tpu_torch.kernels.spmv_dualgather import (
+        launch_pooled, pooled_plain)
+
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + 11 * shape[1])
+    sp = _sparse(rng, shape, density)
+    tail = pack_dualgather(CSR.from_scipy(sp, device=dev), **kw).tail
+    if kw.get("group") == 32:
+        assert tail.idxB.shape[0] == 1  # a tail of one group
+    if shape[0] == 120:
+        assert tail.idxB.shape[0] == 5 and int(tail.group_tile.max()) == 0
+    X = torch.from_numpy(rng.standard_normal((shape[1], k)).astype(
+        np.float32)).to(dev)
+    Y0 = torch.from_numpy(rng.standard_normal((shape[0], k)).astype(
+        np.float32)).to(dev)
+    narrow = dataclasses.replace(tail, shape=(shape[0], shape[1] - 37))
+    for T, x in ((tail, X), (narrow, X[: shape[1] - 37].contiguous())):
+        Y = Y0.clone()
+        before = _build.launch_counts["spmv_pooled"]
+        launch_pooled(T, x, Y)
+        assert _build.launch_counts["spmv_pooled"] == before + 1
+        assert_kernel_close(Y, Y0 + pooled_plain(T, x))
+        assert relative_check(Y.double().cpu().numpy(), _tail_oracle(T, Y0, x))
+
+
+@pytest.mark.parametrize("k_tiles", [1, 8])
+def test_pooled_tail_in_spmm(dev, k_tiles):
+    """A pack with a tail: the body's walk, then the tail; through
+    ``spmm_dualgather`` on superblocks and ``spmv_dualgather`` on either
+    (a k_tiles=1 pack with a tail serves SpMV only, as in JAX:
+    ``spmm_dualgather.py:258``)."""
+    rng = np.random.default_rng(4000 + k_tiles)
+    sp = _sparse(rng, (1000, 3000), 0.05)
+    A = pack_dualgather(CSR.from_scipy(sp, device=dev), spill_cap="auto",
+                        k_tiles=k_tiles)
+    assert A.tail is not None and A.k_tiles == k_tiles
+    x = torch.from_numpy(rng.standard_normal(3000).astype(np.float32)).to(dev)
+    before = _build.launch_counts["spmv_pooled"]
+    y = spmv_dualgather(A, x)
+    assert _build.launch_counts["spmv_pooled"] == before + 1
+    assert_kernel_close(y, spmv_dualgather_reference(A, x))
+    assert _oracle_ok(y, sp, x, False)
+    if k_tiles == 1:
+        with pytest.raises(ValueError, match="superblock pack"):
+            spmm_dualgather(A, torch.ones((3000, 2), device=dev))
+        return
+    for k in (1, 32, 33):
+        X = torch.from_numpy(rng.standard_normal((3000, k)).astype(
+            np.float32)).to(dev)
+        before = _build.launch_counts["spmv_pooled"]
+        Y = spmm_dualgather(A, X)
+        assert _build.launch_counts["spmv_pooled"] == before + 1
+        assert_kernel_close(Y, spmm_dualgather_reference(A, X))
+        assert _oracle_ok(Y, sp, X, False)
 
 
 # ragged tiles and windows, every tr up to 128, a rectangular matrix
