@@ -145,11 +145,16 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2 and 12, ``variant`` lines time each knob setting and
+   For rows 2, 12, 5 and 9, ``variant`` lines time each knob setting and
    ablation beside the default in the same call: the Blocked-ELL split
    over blocks, staging alone, no zero-row skip, FMAs alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
-   tile (k = 32), no X gather, decode alone (an ablation's result is
-   not the product).
+   tile (k = 32), no X gather, decode alone; the SELL kernel's slabs a
+   block, warps a block and sublanes a batch, no x gather, meta read
+   under every value, the values alone; the superblock kernel's slabs a
+   warp, no x gather, no padding skip and a zero fill of y alone (an
+   ablation's result is not the product).  The timing lines of rows 5 and 9 also give each pack's
+   slabs, cells, fill and two layout floors: every plane byte, and the
+   bytes the kernel reads after its skips, at HBM's rate.
    ``timed_ms``, ``wall_ms`` and the peaks come from the package
    (``utils/timer.py``, ``utils/roofline.py``), so the bench suite and
    this script time the same way.
@@ -559,6 +564,40 @@ def tail_stats(tail) -> dict:
     return {"n_groups": tail.idxB.shape[0], "group": tail.group,
             "cells": cells, "fill": tail.nnz / cells, "plane_bytes": nbytes,
             "layout_floor_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+def sell_stats(P) -> dict:
+    """Row 5's pack and its two layout floors at HBM's rate: every plane
+    byte (values, meta, the slab tables) read once, and the bytes the
+    kernel reads: the values, the slab tables, and the 32-byte sectors of
+    its 16-bit copy of meta that hold a nonzero value (meta is read only
+    under one)."""
+    cells = P.vals.numel()
+    tables = 4 * (P.slab_tile.numel() + P.slab_win.numel())
+    vals = P.vals.numel() * P.vals.element_size()
+    every = vals + 4 * cells + tables
+    sectors = int((P.vals.reshape(-1, 16) != 0).any(1).sum())
+    read = vals + 32 * sectors + tables
+    return {"n_slabs": P.meta.shape[0], "cells": cells,
+            "fill": P.nnz / cells, "plane_bytes": every,
+            "layout_floor_ms": every / PEAK_BYTES * 1e3,
+            "read_bytes": read, "read_floor_ms": read / PEAK_BYTES * 1e3}
+
+
+def superblock_stats(P, walked: int) -> dict:
+    """Row 9's pack and its two layout floors at HBM's rate: every plane
+    byte (s_idx, values, the slab and group tables) read once, and the
+    planes of the ``walked`` slabs only (the kernel skips the rest)."""
+    slots = P.vals.numel()
+    slot_bytes = P.s_idx.element_size() + P.vals.element_size()
+    tables = 4 * (P.group_super.numel() + P.slab_win.numel()
+                  + P.slab_tloc.numel())
+    every = slots * slot_bytes + tables
+    read = walked * 1024 * slot_bytes + tables
+    return {"n_slabs": P.n_slabs, "slots": slots, "fill": P.nnz / slots,
+            "walked_slabs": walked, "plane_bytes": every,
+            "layout_floor_ms": every / PEAK_BYTES * 1e3,
+            "read_bytes": read, "read_floor_ms": read / PEAK_BYTES * 1e3}
 
 
 # the probe kernels' entries of the kernels line: (kernel, source,
@@ -1349,7 +1388,8 @@ def main() -> int:
         plain = (selmod.spmv_sell_reference if kname == "spmv_sell"
                  else selmod.spmv_sell_rowpure_reference)
         s5_check(kname, case, lambda P=P, x=x_s, f=kern: f(P, x),
-                 lambda P=P, x=x_s, f=plain: f(P, x), sp_s, x_s)
+                 lambda P=P, x=x_s, f=plain: f(P, x), sp_s, x_s,
+                 sell=P if kname == "spmv_sell" else None)
         sell_main.append((case, P, x_s, sp_s, kname))
 
     # row 12: the XL CSR with the "auto" spill cap (mean row-window
@@ -2519,6 +2559,50 @@ def main() -> int:
             variant("spmv_pooled", label, name,
                     dev_ms(lambda mode=mode: run(mode=mode)), row)
 
+    def sell_variants(label, P, x_s, row):
+        # row 5's knobs beside the default (slabs a block: chunks of C, or
+        # -L for runs of at most L slabs of one tile, a run a block; warps
+        # a block; sublanes a batch), then what sets its pace: no x
+        # gather, meta read under every value, the values alone (the
+        # ablations' results are not A @ x)
+        run = selmod.sell_default_run(P)
+        runs = ((run // 2, 2 * run) if run > 0 else (-1, -4, 4))
+        for r in runs:
+            variant("spmv_sell", label, f"run={r}",
+                    dev_ms(lambda r=r: selmod._spmv_sell_cuda(P, x_s, run=r)),
+                    row)
+        if run > 0:
+            variant("spmv_sell", label, "warps=4",
+                    dev_ms(lambda: selmod._spmv_sell_cuda(P, x_s, warps=4)),
+                    row)
+            variant("spmv_sell", label, "unroll=4",
+                    dev_ms(lambda: selmod._spmv_sell_cuda(P, x_s, unroll=4)),
+                    row)
+            for mode, name in ((1, "no x gather"),
+                               (2, "meta read under every value"),
+                               (3, "values alone")):
+                variant("spmv_sell", label, name,
+                        dev_ms(lambda mode=mode: selmod._spmv_sell_cuda(
+                            P, x_s, mode=mode)), row)
+
+    def superblock_variants(label, P, x_s, row):
+        # row 9's knob beside the default (slabs a warp: one wave of the
+        # warps the card holds, rounded up to whole groups), then
+        # what sets its pace: no x gather, every slab streamed (no skip),
+        # and the zero fill of y that the first version needed (the kernel
+        # now writes y itself)
+        one = -(-P.n_slabs // sbmod._resident_warps(P.s_idx.device))
+        for spw in sorted({8, one, 12, 19, 32}):
+            variant("spmv_superblock", label, f"spw={spw}",
+                    dev_ms(lambda spw=spw: sbmod._spmv_superblock_cuda(
+                        P, x_s, spw=spw)), row)
+        for mode, name in ((1, "no x gather"), (2, "every slab streamed")):
+            variant("spmv_superblock", label, name,
+                    dev_ms(lambda mode=mode: sbmod._spmv_superblock_cuda(
+                        P, x_s, mode=mode)), row)
+        variant("spmv_superblock", label, "zero fill of y alone",
+                dev_ms(lambda: torch.zeros(P.shape[0], device=dev)), row)
+
     cb_main = time_codebook(f"{m}x{n}x{k} float32 X=a.T", b_dns, a.T)
     time_codebook(f"{m}x{n}x{k} bfloat16 X=a.T", b_dns,
                   a.to(torch.bfloat16).T)
@@ -2584,8 +2668,13 @@ def main() -> int:
                    "library_ms": dev_ms(lambda S=S, x_dev=x_dev: S @ x_dev),
                    "launches": main_launches[kname], "bound_ms": bms,
                    "bound_by": by, "flops": flops, "bytes": nbytes}
+            if (kname, case) == ("spmv_superblock", "spgemm_xl P superblock"):
+                row.update(superblock_stats(pp_sb.p_packed, int(
+                    sbmod.group_real(pp_sb.p_packed).sum())))
             emit({"phase": "timing", **row})
             s3_rows[(kname, case)] = row
+    superblock_variants("spgemm_xl P superblock", pp_sb.p_packed, xb["sb"],
+                        s3_rows[("spmv_superblock", "spgemm_xl P superblock")])
     for key, (case, plan) in wp_stage_inputs.items():
         for st, trip in enumerate(plan.planes):
             W = trip[0].shape[0]
@@ -2797,10 +2886,14 @@ def main() -> int:
                     _spmm_dualgather_cuda(W, rhs))
             if extra.get("tail") is not None:
                 row.update(tail_stats(extra["tail"]))
+            if extra.get("sell") is not None:
+                row.update(sell_stats(extra["sell"]))
             emit({"phase": "timing", **row})
             s5_rows[(kname, case)] = row
             if extra.get("tail") is not None:
                 tail_variants(case, extra["tail"], rhs, row)
+            if extra.get("sell") is not None:
+                sell_variants(case, extra["sell"], rhs, row)
     # the spill-cap packs and the SELL packs through the public spmv,
     # beside the auto pack of the same XL CSR; BiCGSTAB's iteration
     for label, run in [

@@ -1,5 +1,8 @@
-// Slab decode and walk of the row-lane layout, shared by the rowlane SpMV
-// (spmv_rowlane.cu) and the superblock SpMV (spmv_superblock.cu).
+// Slab decode and walk of the row-lane layout, run by the rowlane SpMV
+// (spmv_rowlane.cu) and the probe of its walk (probe_rowlane.cu).  The
+// superblock SpMV (spmv_superblock.cu) no longer walks it: it has a walk
+// of its own (a warp a run of slabs, 16-byte words, a padding skip), so
+// the superblock branch below (SB = true, slab_tloc) has no caller now.
 //
 // A pack is a run of n_slabs slabs, each an (8, 128) block of two planes:
 // vals[u][l] and s_idx[u][l] (int8, the column's lane c % 128).  Slab s

@@ -21,6 +21,10 @@ The packers are the JAX packers line for line, so every plane comes out
 
 ``spmv_sell`` and ``spmv_sell_rowpure`` run their plain versions when all
 inputs lie on the CPU, and otherwise launch their kernel or raise.  Both
+kernels walk runs of one tile's slabs (``sell_runs``, ``rowpure_runs``),
+cut on the host from the pack's tile plane once a pack and cached; the
+masked-slab kernel reads its meta plane narrowed to int16
+(``sell_meta16``, made once a pack and cached).  Both
 return the values' type, as the JAX kernels do.  ``spmv_sell`` is not
 differentiable (the JAX function has no VJP): its result carries no
 gradient.  ``spmv_sell_rowpure`` is differentiable in x and in ``vals``
@@ -330,19 +334,25 @@ def spmv_sell_rowpure_reference(packed: SellRowPure,
 # ---------------------------------------------------------------------------
 
 _SELL_ARGTYPES = (
-    ctypes.c_void_p,  # meta (n_slabs, 8, 128) int32
+    ctypes.c_void_p,  # meta16 (n_slabs, 8, 128) int16 (sell_meta16)
     ctypes.c_void_p,  # vals fp32 or bf16
-    ctypes.c_void_p,  # slab_tile (n_slabs,) int32
+    ctypes.c_void_p,  # block_ptr (n_blocks+1,) int32
+    ctypes.c_void_p,  # run_ptr (n_runs+1,) int32
+    ctypes.c_void_p,  # run_tile (n_runs,) int32
     ctypes.c_void_p,  # slab_win (n_slabs,) int32
     ctypes.c_void_p,  # x (cols,) fp32
     ctypes.c_void_p,  # y (rows,) fp32, zeroed
     ctypes.c_int,  # rows
     ctypes.c_int,  # cols
-    ctypes.c_longlong,  # n_slabs
+    ctypes.c_longlong,  # n_blocks
     ctypes.c_int,  # tr
+    ctypes.c_int,  # short runs (a run a block)
     ctypes.c_int,  # bf16 values
     ctypes.c_void_p,  # stream
 )
+# spmv_sell_tuned: warps a block, mode and unroll after the bf16 flag
+_SELL_TUNED_ARGTYPES = _SELL_ARGTYPES[:-1] + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
 _ROWPURE_ARGTYPES = (
     ctypes.c_void_p,  # s_idx (n_groups, group*8, 128) int8
     ctypes.c_void_p,  # vals fp32 or bf16
@@ -361,11 +371,18 @@ _ROWPURE_ARGTYPES = (
 )
 
 
+_ARGTYPES = {"spmv_sell": _SELL_ARGTYPES,
+             "spmv_sell_tuned": _SELL_TUNED_ARGTYPES,
+             "spmv_sell_rowpure": _ROWPURE_ARGTYPES}
+
+
 def _launch(symbol: str, planes, x: torch.Tensor, rows: int, cols: int,
-            count: int, arg: Tuple[int, ...]) -> torch.Tensor:
-    """Launches ``symbol`` of ``csrc/spmv_sell.cu`` and returns y in the
-    values' type.  ``planes`` = (index plane, vals, then the int32 tables
-    the kernel takes)."""
+            count: int, arg: Tuple[int, ...], knobs: Tuple[int, ...] = (),
+            entry: str = "") -> torch.Tensor:
+    """Launches the C function ``entry`` (default ``symbol``) of
+    ``csrc/spmv_sell.cu``, counts a launch of ``symbol``, and returns y in
+    the values' type.  ``planes`` = (index plane, vals, then the int32
+    tables the kernel takes); ``knobs`` follow the bf16 flag."""
     vals = planes[1]
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{symbol}: values must be fp32 or bf16 on the "
@@ -379,12 +396,12 @@ def _launch(symbol: str, planes, x: torch.Tensor, rows: int, cols: int,
     y = torch.zeros(rows, dtype=torch.float32, device=x.device)
     if rows == 0 or cols == 0:
         return y.to(vals.dtype)
-    argtypes = _SELL_ARGTYPES if symbol == "spmv_sell" else _ROWPURE_ARGTYPES
-    fn = _build.load("spmv_sell", argtypes, symbol)
+    entry = entry or symbol
+    fn = _build.load("spmv_sell", _ARGTYPES[entry], entry)
     with torch.cuda.device(x.device):
         err = fn(*(t.data_ptr() for t in planes), x.contiguous().data_ptr(),
                  y.data_ptr(), rows, cols, count, *arg,
-                 int(vals.dtype == torch.bfloat16),
+                 int(vals.dtype == torch.bfloat16), *knobs,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol}: launch failed with CUDA error {err}")
@@ -392,7 +409,123 @@ def _launch(symbol: str, planes, x: torch.Tensor, rows: int, cols: int,
     return y.to(vals.dtype)
 
 
-def _spmv_sell_cuda(packed: SellSpmv, x: torch.Tensor) -> torch.Tensor:
+_RESIDENT: dict = {}
+
+
+def _resident_blocks(device: torch.device, tr: int, short: bool) -> int:
+    """The blocks of the masked-slab kernel (its long- or short-run walk)
+    the card holds at once, asked of the card once."""
+    key = (device.index, tr, short)
+    if key not in _RESIDENT:
+        fn = _build.load("spmv_sell", (ctypes.c_int, ctypes.c_int),
+                         "spmv_sell_blocks")
+        with torch.cuda.device(device):
+            n = fn(tr, int(short))
+        if n <= 0:
+            raise RuntimeError("spmv_sell: the card's occupancy query failed")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
+
+
+# below this many slabs a block, the kernel is bound by one block's chain
+# of dependent loads, not by bytes: each block then takes one short run
+_SELL_SHORT = 4
+
+
+def sell_default_run(packed: SellSpmv) -> int:
+    """The default ``run`` of ``sell_runs``, so that one wave of blocks
+    (the blocks the card holds at once) covers the pack: chunks of C =
+    n_slabs / blocks slabs (C > 0), or, where C would be at most
+    ``_SELL_SHORT``, runs of one tile of at most L slabs, a run a block
+    (the kernel's short-run walk), L the least that needs no second wave
+    (returned as -L)."""
+    st = packed.slab_tile.cpu().numpy()
+    n = st.size
+    dev = packed.slab_tile.device
+    C = -(-n // _resident_blocks(dev, packed.tr, False))
+    if C > _SELL_SHORT:
+        return C
+    G = _resident_blocks(dev, packed.tr, True)
+    tile_len = np.diff(np.flatnonzero(np.r_[True, st[1:] != st[:-1], True]))
+    L = 1
+    while L < _SELL_SHORT and (-(-tile_len // L)).sum() > G:
+        L += 1
+    return -L
+
+
+def _sell_runs_build(packed: SellSpmv, run: int):
+    """(block_ptr (n_blocks+1,), run_ptr (n_runs+1,), run_tile (n_runs,))
+    int32 on the pack's device.  ``run`` = C > 0: the slabs cut into
+    chunks of C consecutive slabs, one a block, and each chunk into runs of
+    one tile (a run starts where the tile changes and where a chunk
+    starts).  ``run`` = -L < 0: each tile's slabs cut into runs of at most
+    L, one run a block.  ``block_ptr`` gives each block's first run and
+    ends with n_runs; ``run_ptr`` each run's first slab and ends with
+    n_slabs."""
+    st = packed.slab_tile.cpu().numpy().astype(np.int64)
+    n = st.size
+    new_tile = np.r_[True, st[1:] != st[:-1]]
+    if run > 0:
+        cut = new_tile.copy()
+        cut[::run] = True
+        starts = np.flatnonzero(cut)
+        block_ptr = np.searchsorted(starts, np.arange(0, n, run))
+    else:
+        first = np.maximum.accumulate(np.where(new_tile, np.arange(n), 0))
+        starts = np.flatnonzero((np.arange(n) - first) % -run == 0)
+        block_ptr = np.arange(starts.size)
+    dev = packed.slab_tile.device
+    return (_put(np.append(block_ptr, starts.size), torch.int32, dev),
+            _put(np.append(starts, n), torch.int32, dev),
+            _put(st[starts], torch.int32, dev))
+
+
+_SELL_RUNS: dict = {}
+
+
+def _sell_meta16_build(packed: SellSpmv) -> torch.Tensor:
+    """The meta plane narrowed to int16 on the pack's device (meta =
+    sub | r << 3 < 1024): the kernel reads 2 bytes a cell, not 4."""
+    if packed.meta.numel() and int(packed.meta.max()) >= 1 << 10:
+        raise ValueError("spmv_sell: meta past sub | (tr - 1) << 3")
+    return packed.meta.to(torch.int16).contiguous()
+
+
+_SELL_META16: dict = {}
+
+
+def sell_meta16(packed: SellSpmv) -> torch.Tensor:
+    """The pack's ``_sell_meta16_build``, built once per pack."""
+    return cached_on(_SELL_META16, packed, _sell_meta16_build)
+
+
+def _resolved(packed: SellSpmv, run: int) -> int:
+    runs = cached_on(_SELL_RUNS, packed, lambda _: {})
+    if run == 0:
+        if 0 not in runs:
+            runs[0] = sell_default_run(packed)
+        run = runs[0]
+    return run
+
+
+def sell_runs(packed: SellSpmv, run: int = 0):
+    """The pack's blocks and runs (``_sell_runs_build``) for ``run`` (0:
+    ``sell_default_run``, which asks the card), built once per pack and
+    ``run``."""
+    run = _resolved(packed, run)
+    runs = cached_on(_SELL_RUNS, packed, lambda _: {})
+    if run not in runs:
+        runs[run] = _sell_runs_build(packed, run)
+    return runs[run]
+
+
+def _spmv_sell_cuda(packed: SellSpmv, x: torch.Tensor, *, run: int = 0,
+                    warps: int = 0, mode: int = 0,
+                    unroll: int = 0) -> torch.Tensor:
+    """The kernel.  ``run`` (``sell_runs``; 0: ``sell_default_run``), ``warps``
+    (a block), ``unroll`` (sublanes a warp's batch) and ``mode`` (an
+    ablation; 1 and 3 do not compute A @ x), 0 each for the kernel's
+    choice, are knobs for measurements only."""
     rows, cols = packed.shape
     _check_x(x, cols, "spmv_sell")
     n = packed.meta.shape[0]
@@ -404,9 +537,21 @@ def _spmv_sell_cuda(packed: SellSpmv, x: torch.Tensor) -> torch.Tensor:
             or packed.slab_tile.shape != (n,)
             or packed.slab_win.shape != (n,)):
         raise ValueError("spmv_sell: inconsistent pack planes")
-    return _launch("spmv_sell", (packed.meta, packed.vals, packed.slab_tile,
-                                 packed.slab_win), x, rows, cols, n,
-                   (packed.tr,))
+    bf16 = packed.vals.dtype == torch.bfloat16
+    meta16 = sell_meta16(packed)
+    if packed.vals.data_ptr() % (8 if bf16 else 16) or meta16.data_ptr() % 8:
+        raise ValueError("spmv_sell: the planes must be aligned for 4-cell "
+                         "loads")
+    run = _resolved(packed, run)
+    block_ptr, run_ptr, run_tile = sell_runs(packed, run)
+    short = run < 0  # a short run a block
+    tuned = warps != 0 or mode != 0 or unroll != 0
+    return _launch("spmv_sell", (meta16, packed.vals, block_ptr,
+                                 run_ptr, run_tile, packed.slab_win),
+                   x, rows, cols, block_ptr.numel() - 1,
+                   (packed.tr, int(short)),
+                   knobs=(int(warps), int(mode), int(unroll)) if tuned else (),
+                   entry="spmv_sell_tuned" if tuned else "")
 
 
 # a run holds at most this many slabs, and enough runs fill the card and

@@ -13,6 +13,7 @@ are both accumulated in fp32 and rounded once, so they may differ by one
 bf16 step (2^-8) of the output scale.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -1803,3 +1804,236 @@ def test_probe_modules_on_card(dev, tmp_path, name, small):
     rows = json.loads(out.read_text())
     assert rows and all(r["card"] and r["device"] == "cuda" for r in rows)
     assert all(r["ms"] > 0 for r in rows if "ms" in r)
+
+
+# ---------------------------------------------------------------------------
+# the masked-slab SELL SpMV walked in runs of one tile's slabs, and the
+# superblock SpMV's own walk (a warp a run of slabs, the padding skipped)
+# ---------------------------------------------------------------------------
+
+tsell = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_sell")
+tsb = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_superblock")
+
+
+def _sell_dense(name, tr, seed):
+    """Dense test matrices for the masked-slab runs: ``one-slab`` (tile 0
+    holds a single slab), ``long-tile`` (tile 0 holds many more slabs than
+    one run: its rows are dense over three windows), ``ragged`` (rows not
+    a multiple of tr, columns not of 1024: the last window's cells past
+    ``cols`` are padding)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = {"one-slab": (5 * tr + 3, 2000),
+                  "long-tile": (3 * tr, 3000),
+                  "ragged": (4 * tr + 1, 2100)}[name]
+    d = gen_random_dense_sparse(rng, rows, cols, density=0.02)
+    if name == "one-slab":
+        d[:tr] = 0
+        d[0, 5] = 7.0
+    if name == "long-tile":
+        d[:tr, ::2] = rng.uniform(-1000, 1000, (tr, -(-cols // 2)))
+    return d.astype(np.float32)
+
+
+def _sell_check(dev, d, tr, bf16=False, **knobs):
+    """The runs kernel (with ``knobs``) against the plain version on the
+    same CUDA tensors and the fp64 oracle, the launch counted."""
+    import scipy.sparse as sps
+
+    P = tsell.pack_sell(CSR.fromdense(d, device=dev), tr=tr)
+    if bf16:
+        P = dataclasses.replace(P, vals=P.vals.to(torch.bfloat16))
+    rng = np.random.default_rng(d.shape[1])
+    x = torch.from_numpy(rng.standard_normal(d.shape[1]).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts["spmv_sell"]
+    got = tsell._spmv_sell_cuda(P, x, **knobs)
+    assert _build.launch_counts["spmv_sell"] == before + 1
+    assert_kernel_close(got, tsell.spmv_sell_reference(P, x))
+    sp64 = sps.csr_matrix(d.astype(np.float64))
+    if bf16:
+        sp64.data = torch.from_numpy(sp64.data).to(
+            torch.bfloat16).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          sp64 @ x.double().cpu().numpy())
+    return P
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name", ["one-slab", "long-tile", "ragged"])
+@pytest.mark.parametrize("tr", [1, 8, 32, 64, 128])
+def test_sell_runs_kernel(dev, tr, name, bf16):
+    P = _sell_check(dev, _sell_dense(name, tr, tr), tr, bf16)
+    st = P.slab_tile.cpu()
+    if name == "one-slab":
+        assert int((st == 0).sum()) == 1
+    if name == "long-tile":  # blocks of 2 slabs split tile 0's slabs
+        assert int((st == 0).sum()) > 2
+        _sell_check(dev, _sell_dense(name, tr, tr), tr, bf16, run=2)
+    if name == "ragged":
+        assert P.n_win * 1024 > P.shape[1] and P.shape[0] % tr == (tr > 1)
+
+
+@pytest.mark.parametrize("warps", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("run", [1, 2, "all", -3])
+def test_sell_runs_knobs(dev, run, warps):
+    """Forced slabs a block (1, 2 and the most: every slab in one block,
+    which then walks every run; -3: runs of at most 3 slabs of one tile, a
+    run a block), warps a block, unroll 4, and the ablation that reads
+    every meta word: each still A @ x."""
+    d = _sell_dense("long-tile", 64, 3)
+    if run == "all":
+        run = tsell.pack_sell(CSR.fromdense(d, device=dev),
+                              tr=64).meta.shape[0]
+    _sell_check(dev, d, 64, run=run, warps=warps)
+    if run != -3:  # the short-run walk has no other knobs
+        _sell_check(dev, d, 64, run=run, warps=warps, mode=2)
+        _sell_check(dev, d, 64, run=run, warps=warps, unroll=4)
+
+
+def test_sell_runs_all_zero_and_nan_x(dev):
+    """An all-zero matrix (the packer's single empty slab) gives zeros; a
+    NaN of x in a column no entry names stays out of y (zero values read
+    no x)."""
+    P = tsell.pack_sell(CSR.fromdense(np.zeros((70, 1500), np.float32),
+                                      device=dev), tr=32)
+    assert P.meta.shape[0] == 1
+    x = torch.ones(1500, device=dev)
+    before = _build.launch_counts["spmv_sell"]
+    y = tsell.spmv_sell(P, x)
+    assert _build.launch_counts["spmv_sell"] == before + 1
+    assert torch.equal(y.cpu(), torch.zeros(70))
+    d = _sell_dense("ragged", 32, 5)
+    d[:, 17] = 0
+    P = tsell.pack_sell(CSR.fromdense(d, device=dev), tr=32)
+    x = torch.randn(d.shape[1], device=dev)
+    x_nan = x.clone()
+    x_nan[17] = float("nan")
+    got = tsell.spmv_sell(P, x_nan)
+    assert torch.isfinite(got).all()
+    assert_kernel_close(got, tsell.spmv_sell_reference(P, x))
+
+
+def _sb_dense(seed, rows=1100, cols=2100, deep=True):
+    """Ragged rows and columns; with ``deep``, tile 1 (rows 128-255) holds
+    rows dense over every other column, so its lanes run many slabs deep
+    and the tile spans several slabs in each window."""
+    rng = np.random.default_rng(seed)
+    d = gen_random_dense_sparse(rng, rows, cols, density=0.01)
+    if deep:
+        d[128:256, ::2] = rng.uniform(-1000, 1000, (128, -(-cols // 2)))
+    return d.astype(np.float32)
+
+
+def _sb_check(dev, d, bf16=False, **kw):
+    """The superblock kernel (``spw``/``mode`` in kw go to the kernel, the
+    rest to the packer) against the plain version and fp64."""
+    import scipy.sparse as sps
+
+    knobs = {k: kw.pop(k) for k in ("spw", "mode") if k in kw}
+    P = pack_superblock(CSR.fromdense(d, device=dev),
+                        dtype=torch.bfloat16 if bf16 else None, **kw)
+    rng = np.random.default_rng(d.shape[0])
+    x = torch.from_numpy(rng.standard_normal(d.shape[1]).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts["spmv_superblock"]
+    got = tsb._spmv_superblock_cuda(P, x, **knobs)
+    assert _build.launch_counts["spmv_superblock"] == before + 1
+    assert_kernel_close(got, spmv_superblock_reference(P, x))
+    sp64 = sps.csr_matrix(d.astype(np.float64))
+    if bf16:
+        sp64.data = torch.from_numpy(sp64.data).to(
+            torch.bfloat16).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          sp64 @ x.double().cpu().numpy())
+    return P
+
+
+@pytest.mark.parametrize("group", [1, 2, 16])
+@pytest.mark.parametrize("k_tiles", [1, 4, 16, 32])
+def test_superblock_walk_kernel(dev, k_tiles, group):
+    P = _sb_check(dev, _sb_dense(k_tiles + group), group=group,
+                  k_tiles=k_tiles)
+    real = tsb.group_real(P).cpu()
+    if group == 1:  # no padding slab anywhere
+        assert bool((real == 1).all())
+    if group == 16:  # superblocks that end in padding slabs
+        assert bool((real < group).any())
+
+
+@pytest.mark.parametrize("spw", [1, 2, 3, 64])
+@pytest.mark.parametrize("mode", [0, 2])
+def test_superblock_walk_knobs(dev, spw, mode):
+    """Ranges of 1-64 slabs a warp (so cuts split the deep tile, which
+    its warps then add into), and the variant that still computes A @ x:
+    every slab streamed."""
+    _sb_check(dev, _sb_dense(7), group=4, k_tiles=4, spw=spw, mode=mode)
+
+
+@pytest.mark.parametrize("case", ["bf16", "rows-past", "no-padding"])
+def test_superblock_walk_shapes(dev, case):
+    if case == "bf16":
+        _sb_check(dev, _sb_dense(8), bf16=True, group=8, k_tiles=8)
+    elif case == "rows-past":  # the last tile is 3 rows of 128
+        _sb_check(dev, _sb_dense(9, rows=643, cols=900), group=2, k_tiles=2,
+                  spw=1)
+    else:  # every superblock's slab count a multiple of the group
+        d = np.zeros((256, 1024), np.float32)
+        d[np.arange(256), np.arange(256) % 128] = 1.0 + np.arange(256)
+        P = _sb_check(dev, d, group=1, k_tiles=2)
+        assert bool((tsb.group_real(P).cpu() == 1).all())
+
+
+def test_superblock_walk_skips_nan_under_zeros(dev):
+    """A NaN of x in a column no entry names stays out of y: zero slots
+    read no x and the padding slabs are not read at all."""
+    d = _sb_dense(10)
+    d[:, [0, 128, 1024]] = 0
+    P = pack_superblock(CSR.fromdense(d, device=dev), group=16, k_tiles=16)
+    assert bool((tsb.group_real(P).cpu() < 16).any())
+    x = torch.randn(d.shape[1], device=dev)
+    x_nan = x.clone()
+    x_nan[[0, 128, 1024]] = float("nan")
+    got = spmv_superblock(P, x_nan)
+    assert torch.isfinite(got).all()
+    assert_kernel_close(got, spmv_superblock_reference(P, x))
+
+
+@pytest.mark.parametrize("kw", [dict(group=16, k_tiles=16),
+                                dict(group=2, k_tiles=32,
+                                     dtype=torch.bfloat16)])
+def test_superblock_walk_backward(dev, kw):
+    """The autograd twin's gradients (x and the values) on the card
+    against the CPU's."""
+    d = _sb_dense(11, rows=700, cols=1500)
+    x = np.random.default_rng(12).standard_normal(1500).astype(np.float32)
+    grads = {}
+    for where in ("cpu", dev):
+        A = pack_superblock(CSR.fromdense(d, device=where), **kw)
+        v = A.vals.clone().requires_grad_()
+        r = torch.from_numpy(x).to(where).requires_grad_()
+        (spmv_superblock(dataclasses.replace(A, vals=v), r) ** 2).sum(
+        ).backward()
+        grads[str(where)] = [v.grad.float().cpu(), r.grad.cpu()]
+    # fp32 as the other gradient tests; bf16 value gradients are rounded
+    # to bf16 on both sides, so one bf16 step (2^-8) apart at most
+    tol = 1e-2 if kw.get("dtype") is torch.bfloat16 else 1e-4
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+def test_superblock_walk_in_spgemm(dev):
+    """``spgemm_apply_packed_csc`` on the superblock layout against fp64,
+    through the superblock kernel."""
+    rng = np.random.default_rng(25)
+    sa, sb = _sparse(rng, (900, 700), 0.02), _sparse(rng, (700, 1300), 0.02)
+    B = CSR.from_scipy(sb, device=dev)
+    pp = spgemm_plan_packed(CSR.from_scipy(sa, device=dev), B,
+                            layout="superblock")
+    before = _build.launch_counts["spmv_superblock"]
+    ct = spgemm_apply_packed_csc(pp, B.data)
+    assert _build.launch_counts["spmv_superblock"] == before + 1
+    want = (sa.astype(np.float64) @ sb.astype(np.float64)).T.tocsr()
+    want.sort_indices()
+    assert relative_check(ct.data[: ct.nnz].double().cpu().numpy(),
+                          want.data)

@@ -213,3 +213,127 @@ def test_rowlane_legacy_spill_raises():
     legacy = dataclasses.replace(P, spill_packed=object())
     with pytest.raises(TypeError, match="spill tail"):
         trl.spmv_sell_rowlane(legacy, torch.zeros(A.shape[1]))
+
+
+@pytest.mark.parametrize("case", ["ragged-g8-k8", "wide-g2-k32",
+                                  "empty-rows", "ragged-bf16"])
+def test_superblock_group_real(case):
+    """The slabs the card kernel walks (``group_real``), from the JAX
+    packer's planes: each group's count equals a rebuild in numpy, the
+    slabs past it hold only zeros (the padding slabs among them), each
+    group's walked slabs are its first ones, in order, and the walked
+    slabs alone give the plain product."""
+    name, kw, _ = SB_CASES[case]
+    A, JA, sp = both(name)
+    jp = jsb.pack_superblock(JA, **_jax_kw(kw))
+    P = tsb.pack_superblock(A, **kw)
+    assert_same_container(P, jp)
+    real = tsb.group_real(P).numpy()
+    vals = np.asarray(jp.vals.astype(jnp.float32)).reshape(
+        real.size, P.group, -1)
+    want = np.array([max([k + 1 for k in range(P.group) if vals[g, k].any()],
+                         default=0) for g in range(real.size)])
+    np.testing.assert_array_equal(real, want)
+    walked = np.arange(P.group)[None, :] < real[:, None]
+    assert not vals[~walked].any()
+    # the skipped slabs are the padding: the pack's slabs less those of
+    # the group-1 rowlane pack it regroups
+    unpadded = trl.pack_sell_rowlane(A, group=1).vals.numel() // 1024
+    assert (~walked).sum() == P.n_slabs - unpadded
+    x = np.random.default_rng(5).standard_normal(sp.shape[1]).astype(
+        np.float32)
+    row, col = tsb._slot_row_col(P)
+    keep = torch.from_numpy(np.repeat(walked.reshape(-1), 8)).reshape(
+        row.shape[0], row.shape[1], 1) & (P.vals != 0)
+    xpad = torch.zeros(P.n_win * 1024, dtype=torch.float64)
+    xpad[: sp.shape[1]] = torch.from_numpy(x).double()
+    y = torch.zeros(P.n_super * P.k_tiles * 128, dtype=torch.float64)
+    y.index_add_(0, row[keep], P.vals.double()[keep] * xpad[col[keep]])
+    want_y = tsb.spmv_superblock_reference(P, torch.from_numpy(x))
+    np.testing.assert_allclose(y[: sp.shape[0]].numpy(),
+                               want_y.double().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want_y.abs().max()))
+
+
+@pytest.mark.parametrize("spw", [1, 3, 10 ** 6])
+@pytest.mark.parametrize("case", ["ragged-g8-k8", "empty-rows"])
+def test_superblock_walk_covers_rows(case, spw):
+    """The warp ranges the card kernel takes (``superblock_walk``), from
+    the JAX packer's planes, walked by the kernel's rules in numpy into a
+    y of NaN: a range stores the tiles it holds whole and the tiles no slab
+    names after its own, adds into the tiles a cut splits (which the
+    wrapper zeroes, and which ``split`` lists), and skips the slabs past
+    ``group_real``; every row ends written once or zeroed and added, and y
+    is the plain product."""
+    name, kw, _ = SB_CASES[case]
+    A, JA, sp = both(name)
+    jp = jsb.pack_superblock(JA, **_jax_kw(kw))
+    P = tsb.pack_superblock(A, **kw)
+    warp_ptr, split, split_rows = (t.numpy() for t in tsb._walk_build(P,
+                                                                        spw))
+    tiles = tsb._slab_tiles(P).numpy()
+    n, rows = tiles.size, sp.shape[0]
+    assert warp_ptr[0] == 0 and warp_ptr[-1] == n
+    assert (np.diff(warp_ptr) >= 0).all()
+    cuts = warp_ptr[1:-1][(warp_ptr[1:-1] > 0) & (warp_ptr[1:-1] < n)]
+    np.testing.assert_array_equal(
+        split, np.unique(tiles[cuts][tiles[cuts - 1] == tiles[cuts]]))
+    np.testing.assert_array_equal(
+        split_rows, [r for t in split for r in range(t * 128, t * 128 + 128)
+                     if r < rows])
+    x = np.random.default_rng(6).standard_normal(sp.shape[1])
+    real = np.asarray(tsb.group_real(P))
+    row, col = (t.numpy().reshape(n, 8, 128) for t in tsb._slot_row_col(P))
+    vals = np.asarray(jp.vals.astype(jnp.float32)).reshape(n, 8, 128)
+    xpad = np.r_[x, np.zeros(P.n_win * 1024)]
+    part = np.where(np.arange(n) % P.group < real[np.arange(n) // P.group],
+                    1.0, 0.0)[:, None] * (vals * xpad[col]).sum(1)
+    y = np.full(rows + 128, np.nan)
+    writes = np.zeros(rows + 128)
+    y[split_rows] = 0
+    n_tiles = -(-rows // 128)
+    for s0, s1 in zip(warp_ptr[:-1], warp_ptr[1:]):
+        if s0 == s1:
+            continue
+        shared = {tiles[s0]} if s0 and tiles[s0 - 1] == tiles[s0] else set()
+        if s1 < n and tiles[s1 - 1] == tiles[s1]:
+            shared.add(tiles[s1])
+
+        def put(t, v):
+            if t in shared:
+                y[t * 128:(t + 1) * 128] += v
+            else:
+                y[t * 128:(t + 1) * 128] = v
+                writes[t * 128:(t + 1) * 128] += 1
+
+        cur = tiles[s0 - 1] if s0 else -1
+        acc = np.zeros(128)
+        for s in range(s0, s1):
+            if tiles[s] != cur:
+                if s > s0:
+                    put(cur, acc)
+                for e in range(cur + 1, min(tiles[s], n_tiles)):
+                    put(e, 0.0)
+                acc, cur = np.zeros(128), tiles[s]
+            acc = acc + part[s]
+        put(cur, acc)
+        if s1 == n:
+            for e in range(cur + 1, n_tiles):
+                put(e, 0.0)
+    assert writes[:rows].max() <= 1 and not np.isnan(y[:rows]).any()
+    want = tsb.spmv_superblock_reference(P, torch.from_numpy(
+        x.astype(np.float32))).double().numpy()
+    np.testing.assert_allclose(y[:rows], want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("resident,want", [(10, 16), (40, 3), (88, 1)])
+def test_superblock_default_spw(monkeypatch, resident, want):
+    """The default slabs a warp (``default_spw``) for a card that holds
+    ``resident`` warps: one wave (88 slabs over the warps), rounded up to
+    whole groups of 8 where that at most doubles it."""
+    monkeypatch.setattr(tsb, "_resident_warps", lambda device: resident)
+    A, _, _ = both("ragged")
+    P = tsb.pack_superblock(A, group=8, k_tiles=8)
+    assert P.n_slabs == 88
+    assert tsb.default_spw(P) == want

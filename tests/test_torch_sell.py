@@ -303,3 +303,79 @@ def test_rowpure_runs_cover_groups_in_order(R, wanted, monkeypatch):
     want = tsell.spmv_sell_rowpure_reference(P, xt).double().numpy()
     np.testing.assert_allclose(y[:dense.shape[0]].numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+def _runs_numpy(slab_tile, C):
+    """The masked-slab blocks and runs rebuilt slab by slab.  C > 0: a
+    block takes C slabs, a run starts where the tile changes or a block
+    starts; C = -L < 0: a run starts where the tile changes or L slabs
+    after the last start, a run a block."""
+    block_ptr, starts, tiles = [], [], []
+    for s, t in enumerate(slab_tile):
+        new_tile = not starts or t != tiles[-1]
+        if C > 0 and s % C == 0 or C < 0 and (new_tile
+                                              or s - starts[-1] == -C):
+            block_ptr.append(len(starts))
+            starts.append(s)
+            tiles.append(t)
+        elif new_tile:
+            starts.append(s)
+            tiles.append(t)
+    return (np.array(block_ptr + [len(starts)]),
+            np.array(starts + [len(slab_tile)]), np.array(tiles))
+
+
+@pytest.mark.parametrize("C", [1, 3, 10 ** 6, -3])
+@pytest.mark.parametrize("tr", [8, 64])
+def test_sell_runs_cover_slabs_in_order(tr, C):
+    """The blocks and runs the card kernel takes (``sell_runs``), from the
+    JAX packer's planes: equal to a slab-by-slab rebuild, every slab once
+    and in order, each run within one tile and one block's C slabs (or at
+    most L of one tile, a run a block); summed run by run in plain torch
+    they give the plain product."""
+    dense, x = random_case(700, 3000, 0.03, seed=1)
+    dense[: 2 * tr, ::3] = 0.5  # tiles 0 and 1 many slabs deep
+    A, JA = both(dense)
+    jp = jsell.pack_sell(JA, tr=tr)
+    P = carry(jp)
+    block_ptr, run_ptr, run_tile = (t.numpy() for t in tsell.sell_runs(P, C))
+    st = np.asarray(jp.slab_tile)
+    for got, want in zip((block_ptr, run_ptr, run_tile), _runs_numpy(st, C)):
+        np.testing.assert_array_equal(got, want)
+    n = st.size
+    assert block_ptr[-1] == run_tile.size
+    assert run_ptr[0] == 0 and run_ptr[-1] == n and (np.diff(run_ptr) >= 1).all()
+    if C > 0:
+        assert block_ptr.size - 1 == -(-n // C)
+        for b in range(block_ptr.size - 1):  # a block's runs fill C slabs
+            assert run_ptr[block_ptr[b]] == b * C
+            assert run_ptr[block_ptr[b + 1]] == min((b + 1) * C, n)
+    else:
+        np.testing.assert_array_equal(block_ptr, np.arange(run_tile.size + 1))
+        assert (np.diff(run_ptr) <= -C).all()
+    if abs(C) > 1:
+        assert (np.diff(run_ptr) > 1).any()
+    row, col = tsell._sell_slot_row_col(P)
+    xt = torch.from_numpy(x).double()
+    y = torch.zeros(P.n_tiles * tr, dtype=torch.float64)
+    for r in range(run_tile.size):
+        g = slice(run_ptr[r], run_ptr[r + 1])
+        assert (st[g] == run_tile[r]).all()
+        v = P.vals[g].double()
+        ok = (v != 0) & (col[g] < dense.shape[1])
+        y.index_add_(0, row[g][ok], v[ok] * xt[col[g][ok]])
+    want = tsell.spmv_sell_reference(P, torch.from_numpy(x)).double().numpy()
+    np.testing.assert_allclose(y[: dense.shape[0]].numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tr", [8, 128])
+def test_sell_meta16_matches_jax_meta(tr):
+    """The 16-bit meta copy the card kernel reads (``sell_meta16``), from
+    the JAX packer's planes: the meta plane itself, narrowed."""
+    dense, _ = random_case(300, 2100, 0.05, seed=4)
+    jp = jsell.pack_sell(both(dense)[1], tr=tr)
+    got = tsell.sell_meta16(carry(jp))
+    want = np.asarray(jp.meta)
+    assert got.dtype == torch.int16 and want.max() < 1 << 10
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
