@@ -18,6 +18,9 @@ packs only).
 
 ``probe_rowlane(packed, xp, step)`` runs ``probe_rowlane_reference`` when
 its inputs lie on the CPU, and otherwise launches the kernel or raises.
+The kernel is the rowlane SpMV's walk (``csrc/rowlane.cuh``) with the
+same side structures (``group_real``, ``sector_mask``, ``rowlane_walk``),
+so each step ablates the kernel that runs.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import ctypes
 import torch
 
 from . import _build
+from .spmv_rowlane import group_real, rowlane_walk, sector_mask
 
 __all__ = ["STEPS", "pad_x", "probe_rowlane", "probe_rowlane_reference"]
 
@@ -44,12 +48,16 @@ _ARGTYPES = (
     ctypes.c_void_p,  # vals fp32
     ctypes.c_void_p,  # group_tile (n_groups,) int32
     ctypes.c_void_p,  # slab_win (n_slabs,) int32
+    ctypes.c_void_p,  # group_real (n_groups,) int32, or null
+    ctypes.c_void_p,  # sector mask (n_slabs, 8) int16
+    ctypes.c_void_p,  # warp_ptr (n_warps+1,) int32
     ctypes.c_void_p,  # xp (S * 128,) fp32
     ctypes.c_void_p,  # out (n_tiles * 1024,) fp32, zeroed
     ctypes.c_int,  # n_tiles
     ctypes.c_int,  # S
     ctypes.c_longlong,  # n_slabs
     ctypes.c_int,  # group
+    ctypes.c_int,  # n_warps
     ctypes.c_void_p,  # stream
 )
 
@@ -133,13 +141,23 @@ def _probe_rowlane_cuda(packed, xp: torch.Tensor, step: str) -> torch.Tensor:
                       device=xp.device)
     if packed.s_idx.numel() == 0 or n_tiles == 0:
         return out
+    if packed.vals.data_ptr() % 16 or packed.s_idx.data_ptr() % 4:
+        raise ValueError("probe_rowlane: the planes must be aligned for "
+                         "4-slot loads")
+    # the rowlane kernel's walk: its side structures, built once a pack
+    real = group_real(packed) if packed.group > 1 else None
+    warp_ptr = rowlane_walk(packed)[0]
     fn = _build.load("probe_rowlane", _ARGTYPES)
     with torch.cuda.device(xp.device):
         err = fn(_STEP_ID[step], packed.s_idx.data_ptr(),
                  packed.vals.data_ptr(), packed.group_tile.data_ptr(),
-                 packed.slab_win.data_ptr(), xp.data_ptr(), out.data_ptr(),
-                 n_tiles, xp.shape[0], packed.s_idx.shape[0] * packed.group,
-                 packed.group, torch.cuda.current_stream().cuda_stream)
+                 packed.slab_win.data_ptr(),
+                 None if real is None else real.data_ptr(),
+                 sector_mask(packed).data_ptr(), warp_ptr.data_ptr(),
+                 xp.data_ptr(), out.data_ptr(), n_tiles, xp.shape[0],
+                 packed.s_idx.shape[0] * packed.group, packed.group,
+                 warp_ptr.numel() - 1,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe_rowlane: launch failed with CUDA error "
                            f"{err}")

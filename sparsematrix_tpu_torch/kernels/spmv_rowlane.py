@@ -24,9 +24,15 @@ whose tail is a masked-slab ``SellSpmv`` runs it through ``spmv_sell``
 
 ``spmv_sell_rowlane(packed, x)`` runs ``spmv_sell_rowlane_reference``
 when all its inputs lie on the CPU, and otherwise launches the kernel or
-raises.  It is differentiable in x and in ``vals`` (the JAX wrapper's
-custom VJP, ``spmv_rowlane.py:487-529``); with a ``t_pack`` the x
-cotangent runs the kernel on the transposed pack.
+raises.  The kernel is the warp walk of ``csrc/rowlane.cuh``; its side
+structures are built from the planes once a pack and cached: the sector
+mask (``sector_mask``: no all-zero 32-byte value sector is read), the
+slabs each group walks (``group_real``, for groups of more than one slab)
+and the warps' ranges of slabs, cut at tile starts (``rowlane_walk``), so
+that each warp stores its own tiles and y needs no zero fill.  It is
+differentiable in x and in ``vals`` (the JAX wrapper's custom VJP,
+``spmv_rowlane.py:487-529``); with a ``t_pack`` the x cotangent runs the
+kernel on the transposed pack.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
 from .spmv_sell import SellSpmv, _spmv_sell_cuda, spmv_sell_reference
@@ -407,13 +413,154 @@ def _body_plain(packed: SellRowLane, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(packed.n_tiles, L, T).sum(dim=1).reshape(-1)[:rows]
 
 
-def _body_cuda(packed: SellRowLane, x: torch.Tensor) -> torch.Tensor:
-    rows, cols = packed.shape
-    if not x.is_cuda:
-        raise ValueError(f"spmv_sell_rowlane: x must lie on the pack's CUDA "
-                         f"device, not {x.device}")
+# ---------------------------------------------------------------------------
+# the card walk (csrc/rowlane.cuh): its side structures, built once a pack
+# ---------------------------------------------------------------------------
+
+def _group_real_build(packed) -> torch.Tensor:
+    """(n_groups,) int32 on the pack's device: the count of each group's
+    slabs up to its last that holds a nonzero value (0 if none).  The
+    walk skips the slabs after it unread: a group's padding slabs hold
+    only zeros."""
+    n_groups, group = packed.s_idx.shape[0], packed.group
+    nz = (packed.vals.reshape(n_groups, group, 8 * _LANES) != 0).any(-1)
+    pos = torch.arange(1, group + 1, dtype=torch.int32,
+                       device=nz.device)
+    return (nz * pos).amax(1).to(torch.int32)
+
+
+_REAL: dict = {}
+
+
+def group_real(packed) -> torch.Tensor:
+    """The pack's ``_group_real_build`` (a rowlane or superblock pack),
+    built once per pack."""
+    return cached_on(_REAL, packed, _group_real_build)
+
+
+def _sector_mask_build(packed) -> torch.Tensor:
+    """(n_slabs, 8) int16 on the pack's device: bit j of slab s's sublane u
+    is set where lanes 8j..8j+7 of ``vals[s, u]`` hold a nonzero value (a
+    32-byte sector of an fp32 value row).  The walk loads a value word and
+    its s_idx word only under a set bit."""
+    nz = (packed.vals.reshape(-1, 8, 16, 8) != 0).any(-1)
+    weight = 1 << torch.arange(16, dtype=torch.int32, device=nz.device)
+    word = (nz.to(torch.int32) * weight).sum(-1, dtype=torch.int32)
+    # the low 16 bits as int16 (the kernel reads them unsigned)
+    return (word - (word >= 1 << 15).to(torch.int32) * (1 << 16)).to(
+        torch.int16).contiguous()
+
+
+_MASKS: dict = {}
+
+
+def sector_mask(packed) -> torch.Tensor:
+    """The pack's ``_sector_mask_build``, built once per pack."""
+    return cached_on(_MASKS, packed, _sector_mask_build)
+
+
+def walk_ranges(tiles: np.ndarray, walked: np.ndarray, spw: int, T: int,
+                rows: int, dev: torch.device):
+    """The walk's warp ranges over slabs whose tiles are ``tiles`` (one a
+    slab, non-decreasing), ``walked`` marking the slabs it reads: (warp_ptr
+    (n_warps+1,) int32, split (k,) int64, split_rows (m,) int64) on
+    ``dev``.  The slabs cut into ranges of about ``spw``, one a warp: each
+    cut moves to the nearest tile start (or the end) where that is at most
+    ``max(1, spw // 2)`` walked slabs away or the tile holds at most
+    ``2 * spw`` walked slabs (the skipped slabs cost a warp nothing), so
+    that a tile is one warp's unless it is long; ``split`` lists the tiles
+    a cut still splits (those the kernel adds into) and ``split_rows``
+    their rows (``T`` a tile) below ``rows`` (which the wrapper zeroes)."""
+    n = tiles.size
+    if n and (np.diff(tiles) < 0).any():
+        raise ValueError("the walk needs slab tiles that never decrease")
+    done = np.r_[0, np.cumsum(walked)]
+    n_warps = max(1, -(-n // spw))
+    want = np.arange(1, n_warps, dtype=np.int64) * n // n_warps
+    starts = np.flatnonzero(np.r_[True, tiles[1:] != tiles[:-1]])
+    i = np.searchsorted(starts, want, side="right")
+    lo = starts[np.maximum(i - 1, 0)]  # the start of want's tile
+    hi = np.r_[starts, n][i]  # the next tile's start, or the end
+    near = np.where(want - lo <= hi - want, lo, hi)
+    move = ((np.abs(done[near] - done[want]) <= max(1, spw // 2))
+            | (done[hi] - done[lo] <= 2 * spw))
+    cut = np.maximum.accumulate(np.where(move, near, want))
+    inner = cut[(cut > 0) & (cut < n)]
+    split = np.unique(tiles[inner][tiles[inner - 1] == tiles[inner]])
+    split_rows = (split[:, None] * T + np.arange(T)).reshape(-1)
+    return (_put(np.r_[0, cut, n], dev, torch.int32),
+            torch.from_numpy(split.astype(np.int64)).to(dev),
+            torch.from_numpy(split_rows[split_rows < rows]
+                             .astype(np.int64)).to(dev))
+
+
+_WARPS: dict = {}
+
+
+def resident_warps(source: str, device: torch.device) -> int:
+    """The warps of ``source``'s walk kernel the card holds at once (its C
+    function ``<source>_warps``), asked once a card."""
+    key = (source, device.index)
+    if key not in _WARPS:
+        fn = _build.load(source, (), f"{source}_warps")
+        with torch.cuda.device(device):
+            n = fn()
+        if n <= 0:
+            raise RuntimeError(f"{source}: the card's occupancy query failed")
+        _WARPS[key] = n
+    return _WARPS[key]
+
+
+def _walk_build(packed: SellRowLane, spw: int):
+    tiles = _slab_tiles(packed).cpu().numpy()
+    walked = np.ones(tiles.size, bool)
+    if packed.group > 1:
+        real = group_real(packed).cpu().numpy()
+        slab = np.arange(tiles.size)
+        walked = slab % packed.group < real[slab // packed.group]
+    return walk_ranges(tiles, walked, spw, _LANES // packed.lanes_per_row,
+                       packed.shape[0], packed.s_idx.device)
+
+
+def rowlane_default_spw(n_slabs: int, resident: int) -> int:
+    """The rowlane kernel's default slabs a warp: about 8, in a whole
+    number of waves of the ``resident`` warps the card holds.  A partial
+    last wave idles most of the card, and on packs of long tiles several
+    short waves balance the warps' ranges better than one long one
+    (``chip_smoke.py``'s variant lines time the neighbours)."""
+    waves = max(1, round(n_slabs / (8 * resident)))
+    return -(-n_slabs // (waves * resident))
+
+
+_WALKS: dict = {}
+
+
+def rowlane_walk(packed: SellRowLane, spw: int = 0):
+    """The pack's walk ranges (``walk_ranges``) at ``spw`` slabs a warp (0:
+    ``rowlane_default_spw`` over the rowlane kernel's resident warps),
+    built once per pack and ``spw``."""
+    walks = cached_on(_WALKS, packed, lambda _: {})
+    if spw == 0:
+        if 0 not in walks:
+            walks[0] = rowlane_default_spw(
+                packed.n_slabs, resident_warps("spmv_rowlane",
+                                               packed.s_idx.device))
+        spw = walks[0]
+    if spw not in walks:
+        walks[spw] = _walk_build(packed, spw)
+    return walks[spw]
+
+
+# a small pack (at most this many slabs a warp in one wave) whose tiles the
+# walk's cuts split anyway takes equal ranges into a zeroed y by default:
+# its time is the latency of a few dependent reads, not bytes
+_EQUAL_SLABS = 4
+
+
+def _check_planes(packed: SellRowLane) -> None:
     planes = (packed.s_idx, packed.vals, packed.group_tile, packed.slab_win)
-    if not all(t.device == x.device and t.is_contiguous() for t in planes):
+    dev = packed.vals.device
+    if not all(t.device == dev and t.is_contiguous() for t in planes):
         raise ValueError("spmv_sell_rowlane: the pack and x must be "
                          "contiguous on one CUDA device")
     n_groups, group = packed.s_idx.shape[0], packed.group
@@ -424,16 +571,71 @@ def _body_cuda(packed: SellRowLane, x: torch.Tensor) -> torch.Tensor:
             or packed.group_tile.shape != (n_groups,)
             or packed.slab_win.numel() != n_groups * group):
         raise ValueError("spmv_sell_rowlane: inconsistent pack planes")
-    y = torch.zeros(rows, dtype=torch.float32, device=x.device)
+    bf16 = packed.vals.dtype == torch.bfloat16
+    if (packed.vals.data_ptr() % (8 if bf16 else 16)
+            or packed.s_idx.data_ptr() % 4):
+        raise ValueError("spmv_sell_rowlane: the planes must be aligned for "
+                         "4-slot loads")
+
+
+def _launch_build(packed: SellRowLane, spw: int, mask: bool, equal):
+    """What a launch on the pack passes besides x, y and the stream, at one
+    setting of the knobs: (the arguments before x, those after y, whether
+    y is zeroed first, the side tensors the pointers name)."""
+    _check_planes(packed)
+    warp_ptr, split, _ = rowlane_walk(packed, spw)
+    resident = resident_warps("spmv_rowlane", packed.vals.device)
+    if equal is None:
+        equal = bool(spw == 0 and split.numel()
+                     and packed.n_slabs <= _EQUAL_SLABS * resident)
+    if equal:  # equal ranges, every tile added into a zeroed y
+        real = sm = warp_ptr = None
+        step = spw or -(-packed.n_slabs // resident)
+        n_warps, zero = -(-packed.n_slabs // step), True
+    else:  # the cut ranges: a zero fill only where a cut splits a tile
+        real = group_real(packed) if packed.group > 1 else None
+        sm = sector_mask(packed) if mask else None
+        step, n_warps, zero = 0, warp_ptr.numel() - 1, bool(split.numel())
+    side = (real, sm, warp_ptr)
+    before = (packed.s_idx.data_ptr(), packed.vals.data_ptr(),
+              packed.group_tile.data_ptr(), packed.slab_win.data_ptr(),
+              *(None if t is None else t.data_ptr() for t in side))
+    after = (*packed.shape, packed.n_slabs, packed.group,
+             packed.lanes_per_row, n_warps, step,
+             int(packed.vals.dtype == torch.bfloat16))
+    return before, after, zero, side
+
+
+_LAUNCHES: dict = {}
+
+
+def _body_cuda(packed: SellRowLane, x: torch.Tensor, *, spw: int = 0,
+               mask: bool = True, equal=None) -> torch.Tensor:
+    """The kernel on the pack's body.  ``spw`` (slabs a warp; 0: the
+    default), ``mask`` (False: every value word read) and ``equal`` (True:
+    equal ranges into a zeroed y; False: the ranges cut at tile starts;
+    None: equal ranges for a small pack that the cuts split) are knobs for
+    measurements only; each gives A @ x.  The launch's arguments are built
+    once a pack and setting, so a call makes one lookup."""
+    rows, cols = packed.shape
+    if not x.is_cuda or x.device != packed.vals.device:
+        raise ValueError(f"spmv_sell_rowlane: x must lie on the pack's CUDA "
+                         f"device, not {x.device}")
     if rows == 0 or cols == 0:
-        return y
+        return torch.zeros(rows, dtype=torch.float32, device=x.device)
+    launches = cached_on(_LAUNCHES, packed, lambda _: {})
+    key = (spw, mask, equal)
+    entry = launches.get(key)
+    if entry is None:
+        entry = launches[key] = _launch_build(packed, spw, mask, equal)
+    before, after, zero, _ = entry
+    # the kernel writes every row but those of the tiles a cut splits,
+    # into which it adds
+    y = (torch.zeros if zero else torch.empty)(
+        rows, dtype=torch.float32, device=x.device)
     fn = _build.load("spmv_rowlane", _ARGTYPES)
     with torch.cuda.device(x.device):
-        err = fn(packed.s_idx.data_ptr(), packed.vals.data_ptr(),
-                 packed.group_tile.data_ptr(), packed.slab_win.data_ptr(),
-                 x.contiguous().data_ptr(), y.data_ptr(), rows, cols,
-                 packed.n_slabs, group, packed.lanes_per_row,
-                 int(packed.vals.dtype == torch.bfloat16),
+        err = fn(*before, x.contiguous().data_ptr(), y.data_ptr(), *after,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_rowlane: launch failed with CUDA error "
@@ -447,13 +649,18 @@ _ARGTYPES = (
     ctypes.c_void_p,  # vals fp32 or bf16
     ctypes.c_void_p,  # group_tile (n_groups,) int32
     ctypes.c_void_p,  # slab_win (n_slabs,) int32
+    ctypes.c_void_p,  # group_real (n_groups,) int32, or null
+    ctypes.c_void_p,  # sector mask (n_slabs, 8) int16, or null
+    ctypes.c_void_p,  # warp_ptr (n_warps+1,) int32, or null
     ctypes.c_void_p,  # x (cols,) fp32
-    ctypes.c_void_p,  # y (rows,) fp32, zeroed
+    ctypes.c_void_p,  # y (rows,) fp32, zero in the split tiles
     ctypes.c_int,  # rows
     ctypes.c_int,  # cols
     ctypes.c_longlong,  # n_slabs
     ctypes.c_int,  # group
     ctypes.c_int,  # lanes_per_row
+    ctypes.c_int,  # n_warps
+    ctypes.c_int,  # slabs a warp without warp_ptr
     ctypes.c_int,  # bf16 values
     ctypes.c_void_p,  # stream
 )

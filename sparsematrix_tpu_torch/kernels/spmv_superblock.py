@@ -11,13 +11,15 @@ superblock.  Slabs are the rowlane layout's at lanes_per_row 1, so
 
 ``spmv_superblock(packed, x)`` runs ``spmv_superblock_reference`` when
 all its inputs lie on the CPU, and otherwise launches the kernel or
-raises.  The kernel walks each group's slabs only up to its last that
-holds a nonzero value (``group_real``), so it never reads the padding
-slabs at a superblock's end, and its warps walk ranges of slabs cut at
-tile starts (``superblock_walk``), so that each stores its own tiles and
-y needs no zero fill; both are built from the planes once a pack and
-cached.  It is differentiable in x and in ``vals`` (the JAX wrapper's
-custom VJP, ``spmv_superblock.py:232-260``).
+raises.  The kernel is the rowlane kernel's warp walk
+(``csrc/rowlane.cuh``) with the superblock's tile rule: it walks each
+group's slabs only up to its last that holds a nonzero value
+(``group_real``), so it never reads the padding slabs at a superblock's
+end, and its warps walk ranges of slabs cut at tile starts
+(``superblock_walk``), so that each stores its own tiles and y needs no
+zero fill; both are built from the planes once a pack and cached.  It is
+differentiable in x and in ``vals`` (the JAX wrapper's custom VJP,
+``spmv_superblock.py:232-260``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
 from .spmv_rowlane import (_pack_arrays, _pack_arrays_native, _put,
-                           slab_walk_plain)
+                           group_real, resident_warps, slab_walk_plain,
+                           walk_ranges)
 
 __all__ = ["SellSuperblock", "pack_superblock", "spmv_superblock",
            "spmv_superblock_reference"]
@@ -186,76 +189,18 @@ _ARGTYPES = (
 _TUNED_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)
 
 
-def _group_real_build(packed: SellSuperblock) -> torch.Tensor:
-    """(n_groups,) int32 on the pack's device: the count of each group's
-    slabs up to its last that holds a nonzero value (0 if none).  The
-    kernel skips the slabs after it unread: the padding slabs at the end
-    of each superblock hold only zeros."""
-    n_groups, group = packed.s_idx.shape[0], packed.group
-    nz = (packed.vals.reshape(n_groups, group, 8 * _LANES) != 0).any(-1)
-    pos = torch.arange(1, group + 1, dtype=torch.int32,
-                       device=nz.device)
-    return (nz * pos).amax(1).to(torch.int32)
-
-
-_REAL: dict = {}
-
-
-def group_real(packed: SellSuperblock) -> torch.Tensor:
-    """The pack's ``_group_real_build``, built once per pack."""
-    return cached_on(_REAL, packed, _group_real_build)
-
-
 def _walk_build(packed: SellSuperblock, spw: int):
-    """(warp_ptr (n_warps+1,) int32, split (k,) int64, split_rows (m,)
-    int64) on the pack's device.  The slabs cut into ranges of about
-    ``spw``, one a warp: each cut moves to the nearest tile start that is
-    at most ``spw // 2`` walked slabs away (the skipped slabs, a
-    superblock's padding among them, cost a warp nothing), so that a tile
-    is one warp's; ``split`` lists the tiles a cut still splits (those the
-    kernel adds into) and ``split_rows`` their rows below ``rows`` (which
-    the wrapper zeroes)."""
+    """The pack's ``walk_ranges`` (``spmv_rowlane.py``) at ``spw`` slabs a
+    warp, the slabs past each group's ``group_real`` (a superblock's
+    padding slabs among them) counting as skipped."""
     tiles = _slab_tiles(packed).cpu().numpy()
-    n = tiles.size
     real = group_real(packed).cpu().numpy()
-    slab = np.arange(n)
-    walked = np.r_[0, np.cumsum(slab % packed.group
-                                < real[slab // packed.group])]
-    n_warps = max(1, -(-n // spw))
-    want = np.arange(1, n_warps, dtype=np.int64) * n // n_warps
-    starts = np.flatnonzero(np.r_[True, tiles[1:] != tiles[:-1]])
-    i = np.searchsorted(starts, want)
-    lo = starts[np.maximum(i - 1, 0)]
-    hi = starts[np.minimum(i, starts.size - 1)]
-    near = np.where(want - lo <= np.abs(hi - want), lo, hi)
-    cut = np.maximum.accumulate(
-        np.where(np.abs(walked[near] - walked[want]) <= spw // 2, near,
-                 want))
-    inner = cut[(cut > 0) & (cut < n)]
-    split = np.unique(tiles[inner][tiles[inner - 1] == tiles[inner]])
-    split_rows = (split[:, None] * _LANES + np.arange(_LANES)).reshape(-1)
-    dev = packed.s_idx.device
-    return (_put(np.r_[0, cut, n], dev, torch.int32),
-            torch.from_numpy(split.astype(np.int64)).to(dev),
-            torch.from_numpy(split_rows[split_rows < packed.shape[0]]
-                             .astype(np.int64)).to(dev))
+    slab = np.arange(tiles.size)
+    return walk_ranges(tiles, slab % packed.group < real[slab // packed.group],
+                       spw, _LANES, packed.shape[0], packed.s_idx.device)
 
 
-_WARPS: dict = {}
 _WALKS: dict = {}
-
-
-def _resident_warps(device: torch.device) -> int:
-    """The warps of the kernel the card holds at once, asked once."""
-    if device.index not in _WARPS:
-        fn = _build.load("spmv_superblock", (), "spmv_superblock_warps")
-        with torch.cuda.device(device):
-            n = fn()
-        if n <= 0:
-            raise RuntimeError("spmv_superblock: the card's occupancy query "
-                               "failed")
-        _WARPS[device.index] = n
-    return _WARPS[device.index]
 
 
 def default_spw(packed: SellSuperblock) -> int:
@@ -267,6 +212,10 @@ def default_spw(packed: SellSuperblock) -> int:
     one = -(-packed.n_slabs // _resident_warps(packed.s_idx.device))
     whole = -(-one // packed.group) * packed.group
     return whole if whole <= 2 * one else one
+
+
+def _resident_warps(device: torch.device) -> int:
+    return resident_warps("spmv_superblock", device)
 
 
 def superblock_walk(packed: SellSuperblock, spw: int = 0):
@@ -284,9 +233,9 @@ def superblock_walk(packed: SellSuperblock, spw: int = 0):
 
 def _spmv_superblock_cuda(packed: SellSuperblock, x: torch.Tensor, *,
                           spw: int = 0, mode: int = 0) -> torch.Tensor:
-    """The kernel.  ``spw`` (slabs a warp; 0: ``default_spw``) and ``mode`` (0:
-    none; 1: no x gather, not A @ x; 2: every slab streamed) are knobs for
-    measurements only."""
+    """The kernel.  ``spw`` (slabs a warp; 0: ``default_spw``) and
+    ``mode`` (0: none; 1: no x gather, not A @ x; 2: every slab streamed)
+    are knobs for measurements only."""
     _check(packed, x)
     rows, cols = packed.shape
     planes = (packed.s_idx, packed.vals, packed.group_super, packed.slab_win,
@@ -318,9 +267,10 @@ def _spmv_superblock_cuda(packed: SellSuperblock, x: torch.Tensor, *,
     y = torch.empty(rows, dtype=torch.float32, device=x.device)
     if split_rows.numel():
         y.index_fill_(0, split_rows, 0.0)
+    tuned = bool(mode)
     fn = _build.load("spmv_superblock",
-                     _TUNED_ARGTYPES if mode else _ARGTYPES,
-                     "spmv_superblock_tuned" if mode else None)
+                     _TUNED_ARGTYPES if tuned else _ARGTYPES,
+                     "spmv_superblock_tuned" if tuned else None)
     with torch.cuda.device(x.device):
         err = fn(packed.s_idx.data_ptr(), packed.vals.data_ptr(),
                  packed.group_super.data_ptr(), packed.slab_win.data_ptr(),
@@ -328,7 +278,7 @@ def _spmv_superblock_cuda(packed: SellSuperblock, x: torch.Tensor, *,
                  warp_ptr.data_ptr(), x.contiguous().data_ptr(), y.data_ptr(),
                  rows, cols, packed.n_slabs, group, packed.k_tiles,
                  warp_ptr.numel() - 1, int(bf16),
-                 *((int(mode),) if mode else ()),
+                 *((int(mode),) if tuned else ()),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmv_superblock: launch failed with CUDA error "

@@ -32,7 +32,7 @@ A ``CodebookDense`` takes the JAX package's route too: its plain table
 lookup and one dense product (``_spmm_codebook_dense_plain``, the twin of
 ``_spmm_codebook_dense_jnp``), which the JAX ``_pallas_impl`` picks over
 its Pallas kernel (``spmm.py:421-429``), as the lookup beats the port's
-fused kernel on the card (PERF.md, kernel row 1).  That kernel stays
+fused kernel on the card at 4096 rows of X (PERF.md, kernel row 1).  That kernel stays
 callable by name (``kernels/codebook.py``'s ``codebook_spmm`` and
 ``codebook_matmul``).  Formats and routes of the JAX package that the
 port does not have yet raise ``NotImplementedError`` naming their ROADMAP

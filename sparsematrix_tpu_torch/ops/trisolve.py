@@ -26,7 +26,8 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import default_index_dtype, sparse_container, static_field
+from ..formats.base import (cached_on, default_index_dtype, sparse_container,
+                            static_field)
 from ..formats.csr import CSR
 
 __all__ = [
@@ -412,13 +413,23 @@ def _level_pack(plan: TriLevelPlan, j: int):
         lanes_per_row=1, nnz=0)
 
 
+_LEVEL_PACKS: dict = {}
+
+
+def _level_packs(plan: TriLevelPlan):
+    """Every level's ``_level_pack``, made once per plan, so that the
+    rowlane kernel's side structures (built once a pack) are too."""
+    return cached_on(_LEVEL_PACKS, plan, lambda p: [
+        _level_pack(p, j) for j in range(p.s_idx.shape[0])])
+
+
 def trisolve_level_apply(plan: TriLevelPlan, b: torch.Tensor) -> torch.Tensor:
     """Numeric solve: one row-lane SpMV a level (the rowlane kernel on a
     CUDA plan, the JAX package's ``_rowlane_call`` a level)."""
     from ..kernels.spmv_rowlane import _rowlane_forward
 
     x = plan.inv_diag * b
-    for j in range(plan.s_idx.shape[0]):
-        y = _rowlane_forward(_level_pack(plan, j), x)
+    for j, pack in enumerate(_level_packs(plan)):
+        y = _rowlane_forward(pack, x)
         x = torch.where(plan.level_of == j + 1, (b - y) * plan.inv_diag, x)
     return x

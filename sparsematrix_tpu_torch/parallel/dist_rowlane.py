@@ -21,7 +21,7 @@ from typing import Tuple
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from ..kernels.spmm_rowlane import spmm_rowlane
 from ..kernels.spmv_rowlane import (SellRowLane, pack_sell_rowlane,
@@ -116,14 +116,28 @@ def local_sell(part: PartitionedRowLane, p_local) -> SellRowLane:
         lanes_per_row=part.lanes_per_row, nnz=0)
 
 
+_LOCAL: dict = {}
+
+
+def _local_sell_of(part: PartitionedRowLane, mesh: Mesh, axis_name):
+    """This rank's ``local_sell``, made once per partition and rank, so
+    that the rowlane kernel's side structures (built once a pack) are
+    too."""
+    packs = cached_on(_LOCAL, part, lambda _: {})
+    key = (mesh.axis_index(axis_name), str(mesh.device))
+    if key not in packs:
+        packs[key] = local_sell(part, shard_partitioned(part, mesh,
+                                                        axis_name))
+    return packs[key]
+
+
 def dist_spmv_rowlane(part: PartitionedRowLane, x, mesh: Mesh,
                       axis_name: str = "shard"):
     """``y = A @ x``: this rank's x band (ceil(cols / n) values) in, its
     ``band_rows`` rows of y out; the local product on the row-lane SpMV
     kernel."""
-    p = shard_partitioned(part, mesh, axis_name)
     x_full = mesh.all_gather(x, axis_name)[: part.shape[1]]
-    return spmv_sell_rowlane(local_sell(part, p), x_full)
+    return spmv_sell_rowlane(_local_sell_of(part, mesh, axis_name), x_full)
 
 
 def dist_spmm_rowlane(part: PartitionedRowLane, X, mesh: Mesh,

@@ -2037,3 +2037,196 @@ def test_superblock_walk_in_spgemm(dev):
     want.sort_indices()
     assert relative_check(ct.data[: ct.nnz].double().cpu().numpy(),
                           want.data)
+
+
+# -- row 7: the rowlane kernel on the warp walk (csrc/rowlane.cuh) -----------
+
+trl = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_rowlane")
+
+
+def _rl_dense(seed, rows=1100, cols=2100):
+    """Ragged rows and columns, rows 512-767 empty (whole empty tiles at
+    every lanes_per_row), and rows 128-255 dense over every other column,
+    so that their tiles run many slabs deep and a short range cuts them."""
+    rng = np.random.default_rng(seed)
+    d = gen_random_dense_sparse(rng, rows, cols, density=0.01)
+    d[128:256, ::2] = rng.uniform(-1000, 1000, (128, -(-cols // 2)))
+    d[512:768] = 0
+    return d.astype(np.float32)
+
+
+def _rl_check(dev, d, bf16=False, **kw):
+    """The rowlane kernel's body (``spw``/``mask``/``equal`` in kw go to the
+    kernel, the rest to the packer) against the plain version and fp64."""
+    import scipy.sparse as sps
+
+    knobs = {k: kw.pop(k) for k in ("spw", "mask", "equal") if k in kw}
+    P = pack_sell_rowlane(CSR.fromdense(d, device=dev),
+                          dtype=torch.bfloat16 if bf16 else None, **kw)
+    rng = np.random.default_rng(d.shape[0])
+    x = torch.from_numpy(rng.standard_normal(d.shape[1]).astype(
+        np.float32)).to(dev)
+    before = _build.launch_counts["spmv_rowlane"]
+    got = trl._body_cuda(P, x, **knobs)
+    assert _build.launch_counts["spmv_rowlane"] == before + 1
+    assert_kernel_close(got, spmv_sell_rowlane_reference(P, x))
+    sp64 = sps.csr_matrix(d.astype(np.float64))
+    if bf16:
+        sp64.data = torch.from_numpy(sp64.data).to(
+            torch.bfloat16).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          sp64 @ x.double().cpu().numpy())
+    return P
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("spw", [0, 1, 3])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_rowlane_walk_kernel(dev, L, spw, bf16):
+    """Every lanes_per_row of the fold, fp32 and bf16 values, empty tiles,
+    rows not a multiple of 128, the default ranges (equal ones: these
+    packs are small and their deep tiles split) and short ones cut at
+    tiles that cut the deep tiles (which the kernel adds into), group 8
+    (group_real's skip) with the short ranges of 3."""
+    kw = dict(group=8) if spw == 3 else {}
+    P = _rl_check(dev, _rl_dense(10 * L + spw), bf16=bf16, lanes_per_row=L,
+                  spw=spw, **kw)
+    if spw:
+        assert trl.rowlane_walk(P, spw)[1].numel() > 0  # a split tile
+
+
+@pytest.mark.parametrize("equal", [False, True])
+@pytest.mark.parametrize("spw", [0, 1, 5])
+def test_rowlane_walk_equal_ranges(dev, spw, equal):
+    """Equal ranges of 1 or 5 slabs (or the default), their x gathers
+    issued together, and the ranges cut at tiles, at two lanes a row with
+    group 4 (padding slabs walked in equal ranges, skipped in cut ones)."""
+    _rl_check(dev, _rl_dense(40 + spw + equal), lanes_per_row=2, group=4,
+              spw=spw, equal=equal)
+
+
+@pytest.mark.parametrize("spw", [0, 2])
+def test_rowlane_walk_mask_off(dev, spw):
+    """The knob that reads every value word (no sector mask) gives A @ x
+    too."""
+    _rl_check(dev, _rl_dense(31), lanes_per_row=2, spw=spw, mask=False)
+
+
+def test_rowlane_walk_skips_inf_under_zeros(dev):
+    """An inf of x in a column no entry names stays out of y: zero slots
+    (the padding slots name column 0 of their window's sublane) read no
+    x, and the words under a clear mask bit are not loaded, in the equal
+    ranges a small pack takes and in ranges cut at tiles."""
+    d = _rl_dense(32)
+    d[:, [0, 128, 1024]] = 0
+    P = pack_sell_rowlane(CSR.fromdense(d, device=dev), group=8)
+    x = torch.randn(d.shape[1], device=dev)
+    x_inf = x.clone()
+    x_inf[[0, 128, 1024]] = float("inf")
+    # equal ranges (a small pack, by default and forced), then cuts at
+    # tiles
+    for kw in ({}, {"equal": True}, {"spw": 3}):
+        got = trl._body_cuda(P, x_inf, **kw)
+        assert torch.isfinite(got).all()
+        assert_kernel_close(got, spmv_sell_rowlane_reference(P, x))
+
+
+def test_rowlane_one_launch_no_zero_fill(dev):
+    """The fixpoint solve's pack of a 128² Poisson ILU(0) factor (one or
+    two slabs a tile, so no default range cuts a tile): the wrapper
+    zero-fills nothing, and the kernel writes every row of an unzeroed y
+    (here a block that held NaN just before), in one launch."""
+    from sparsematrix_tpu_torch.ops import ilu0_fixpoint_plans
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    n, sp = poisson2d(16384, 1.0)
+    L, _ = ilu0_fixpoint_plans(CSR.from_scipy(sp.astype(np.float32).tocsr(),
+                                              device=dev), n_iters=6)
+    P = L.e_packed
+    x = torch.randn(n, device=dev)
+    want = spmv_sell_rowlane_reference(P, x)
+    spmv_sell_rowlane(P, x)  # builds the walk's side structures
+    assert trl.rowlane_walk(P)[1].numel() == 0
+    junk = torch.full((n,), float("nan"), device=dev)
+    del junk  # the caching allocator hands this block to the next y
+    before = _build.launch_counts["spmv_rowlane"]
+    got = spmv_sell_rowlane(P, x)
+    assert _build.launch_counts["spmv_rowlane"] == before + 1
+    assert torch.isfinite(got).all()
+    assert_kernel_close(got, want)
+
+
+def test_rowlane_walk_refuses_misaligned_planes(dev):
+    d = _rl_dense(34)
+    P = pack_sell_rowlane(CSR.fromdense(d, device=dev))
+    flat = torch.zeros(P.vals.numel() + 1, device=dev)
+    odd = dataclasses.replace(P, vals=flat[1:].reshape(P.vals.shape))
+    with pytest.raises(ValueError, match="aligned"):
+        trl._body_cuda(odd, torch.zeros(d.shape[1], device=dev))
+
+
+# -- row 1: the fused codebook product, every split --------------------------
+
+@pytest.mark.parametrize("split", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mnk", [(8, 128, 256), (29, 200, 300),
+                                 (117, 1023, 2047), (4096, 1023, 2047)])
+def test_codebook_kernel_splits(dev, mnk, dtype, split):
+    """Each split of k (its partials summed in split order by a second
+    kernel), both X layouts: the plain version's product, and two calls
+    bit-equal."""
+    from sparsematrix_tpu_torch.kernels.codebook import _codebook_spmm_cuda
+
+    m, n, k = mnk
+    rng = np.random.default_rng(sum(mnk) + split)
+    idx, table = gen_sparse_index_matrix(rng, k, n, density=0.25,
+                                         table_size=255)
+    b_t = CodebookDense.from_index_matrix(idx, table, trans=True, device=dev)
+    a = torch.from_numpy(gen_matrix_random(rng, m, k)).to(dev, dtype)
+    for X in (a.T, a.T.contiguous()):
+        want = codebook_spmm_reference(b_t.idx, b_t.val_table, X)
+        before = _build.launch_counts["codebook_spmm"]
+        got = _codebook_spmm_cuda(b_t.idx, b_t.val_table, X, split=split)
+        again = _codebook_spmm_cuda(b_t.idx, b_t.val_table, X, split=split)
+        assert _build.launch_counts["codebook_spmm"] == before + 2
+        assert_kernel_close(got, want)
+        assert torch.equal(got, again)
+
+
+def test_codebook_kernel_default_split(dev):
+    """The default split: 8 at the reference shape's 16 tiles, 1 at 4096
+    columns of X (one wave of blocks on a card of 132 SMs)."""
+    from sparsematrix_tpu_torch.kernels.codebook import codebook_split
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms < 128:
+        pytest.skip(f"a card of {sms} SMs takes other splits")
+    assert codebook_split(1023, 2047, 117, dev) == 8
+    assert codebook_split(1023, 2047, 4096, dev) == 1
+
+
+def test_codebook_kernel_unaligned_views(dev):
+    """Views that start off 16 bytes (the kernel's copies need 16-byte
+    bases) are copied first: the product is the plain version's."""
+    rng = np.random.default_rng(36)
+    idx, table = gen_sparse_index_matrix(rng, 300, 91, table_size=30)
+    b_t = CodebookDense.from_index_matrix(idx, table, trans=True, device=dev)
+    big = torch.from_numpy(gen_matrix_random(rng, 301, 41)).to(dev)
+    X = big[1:]  # row-major, 41 floats past the base
+    raw = torch.zeros(b_t.idx.numel() + 3, dtype=torch.uint8, device=dev)
+    raw[3:] = b_t.idx.reshape(-1)
+    idx_off = raw[3:].reshape(b_t.idx.shape)
+    assert X.data_ptr() % 16 and idx_off.data_ptr() % 16
+    assert_kernel_close(codebook_spmm(idx_off, b_t.val_table, X),
+                        codebook_spmm_reference(b_t.idx, b_t.val_table, X))
+
+
+def test_codebook_kernel_refuses_bad_split(dev):
+    from sparsematrix_tpu_torch.kernels.codebook import _codebook_spmm_cuda
+
+    rng = np.random.default_rng(37)
+    idx, table = gen_sparse_index_matrix(rng, 64, 32)
+    b_t = CodebookDense.from_index_matrix(idx, table, trans=True, device=dev)
+    with pytest.raises(ValueError, match="split"):
+        _codebook_spmm_cuda(b_t.idx, b_t.val_table,
+                            torch.ones((64, 4), device=dev), split=3)

@@ -337,3 +337,161 @@ def test_superblock_default_spw(monkeypatch, resident, want):
     P = tsb.pack_superblock(A, group=8, k_tiles=8)
     assert P.n_slabs == 88
     assert tsb.default_spw(P) == want
+
+
+@pytest.mark.parametrize("case", ["ragged-L1", "wide-L2-group4", "ragged-L4",
+                                  "ragged-bf16", "empty-rows"])
+def test_rowlane_sector_mask(case):
+    """The card walk's sector mask (``sector_mask``), from the JAX packer's
+    planes: bit j of slab s's sublane u is set exactly where lanes
+    8j..8j+7 of the sublane hold a nonzero value (a numpy recount), so the
+    value words under a clear bit, which the walk never loads, hold only
+    zeros."""
+    name, kw, _ = RL_CASES[case]
+    A, JA, _ = both(name)
+    jp = jrl.pack_sell_rowlane(JA, **_jax_kw(kw))
+    P = trl.pack_sell_rowlane(A, **kw)
+    assert_same_container(P, jp)
+    mask = trl.sector_mask(P)
+    assert mask.dtype == torch.int16 and mask.shape == (P.n_slabs, 8)
+    vals = np.asarray(jp.vals.astype(jnp.float32)).reshape(-1, 8, 16, 8)
+    want = ((vals != 0).any(-1) * (1 << np.arange(16))).sum(-1)
+    np.testing.assert_array_equal(mask.numpy().view(np.uint16), want)
+    assert trl.sector_mask(P) is mask  # built once a pack
+
+
+def _walk_emulate(P, warp_ptr, split_rows, x):
+    """The card walk (``csrc/rowlane.cuh``) over a rowlane pack in numpy:
+    each range walks its slabs, loads only the value words under a set
+    mask bit and only the slabs up to ``group_real`` (group > 1), folds the
+    L lanes of a row, stores the tiles it holds whole and the tiles no slab
+    names after its own, and adds into the tiles a cut splits.  Returns y
+    (NaN where nothing was written) and the count of stores a row."""
+    L, rows = P.lanes_per_row, P.shape[0]
+    T = 128 // L
+    tiles = trl._slab_tiles(P).numpy()
+    n = tiles.size
+    n_tiles = -(-rows // T)
+    mask = trl.sector_mask(P).numpy().view(np.uint16)
+    bits = (mask[:, :, None] >> np.arange(16)) & 1  # (n, 8, 16)
+    lane_on = np.repeat(bits, 8, axis=2).astype(bool)  # (n, 8, 128)
+    walked = np.ones(n, bool)
+    if P.group > 1:
+        real = trl.group_real(P).numpy()
+        walked = np.arange(n) % P.group < real[np.arange(n) // P.group]
+    vals = P.vals.float().numpy().reshape(n, 8, 128)
+    vals = np.where(lane_on & walked[:, None, None], vals, 0.0)
+    win = P.slab_win.numpy().reshape(-1).astype(np.int64)
+    col = (win[:, None, None] * 1024 + np.arange(8)[None, :, None] * 128
+           + (P.s_idx.numpy().reshape(n, 8, 128).astype(np.int64) & 127))
+    xpad = np.r_[x, np.zeros(P.n_win * 1024)]
+    part = (vals * xpad[col]).sum(1)  # (n, 128) lane sums
+    y = np.full(n_tiles * T + T, np.nan)
+    writes = np.zeros(y.size)
+    y[split_rows] = 0
+    for s0, s1 in zip(warp_ptr[:-1], warp_ptr[1:]):
+        if s0 == s1:
+            continue
+        shared = {tiles[s0]} if s0 and tiles[s0 - 1] == tiles[s0] else set()
+        if s1 < n and tiles[s1 - 1] == tiles[s1]:
+            shared.add(tiles[s1])
+
+        def put(t, v):
+            v = v.reshape(L, T).sum(0)
+            if t in shared:
+                y[t * T:(t + 1) * T] += v
+            else:
+                y[t * T:(t + 1) * T] = v
+                writes[t * T:(t + 1) * T] += 1
+
+        cur = tiles[s0 - 1] if s0 else -1
+        acc = np.zeros(128)
+        for s in range(s0, s1):
+            if tiles[s] != cur:
+                if s > s0:
+                    put(cur, acc)
+                for e in range(cur + 1, min(tiles[s], n_tiles)):
+                    put(e, np.zeros(128))
+                acc, cur = np.zeros(128), tiles[s]
+            acc = acc + part[s]
+        put(cur, acc)
+        if s1 == n:
+            for e in range(cur + 1, n_tiles):
+                put(e, np.zeros(128))
+    return y[:rows], writes[:rows]
+
+
+@pytest.mark.parametrize("spw", [1, 3, 10 ** 6])
+@pytest.mark.parametrize("case", ["ragged-L1", "wide-L2-group4", "ragged-L4",
+                                  "empty-rows"])
+def test_rowlane_walk_covers_rows(case, spw):
+    """The warp ranges of the card walk (``rowlane_walk``), from the JAX
+    packer's planes, at lanes_per_row 1, 2 and 4: they cover each slab
+    once, in order; a cut lies at a tile start unless its tile is listed
+    as split (the tiles the kernel adds into; their rows, ``split_rows``,
+    the wrapper zeroes); and the kernel's rules, walked in numpy into a y
+    of NaN, write every row once or zero it and add, giving the plain
+    product."""
+    name, kw, _ = RL_CASES[case]
+    A, JA, sp = both(name)
+    P = trl.pack_sell_rowlane(A, **kw)
+    assert_same_container(P, jrl.pack_sell_rowlane(JA, **_jax_kw(kw)))
+    warp_ptr, split, split_rows = (t.numpy() for t in trl._walk_build(P,
+                                                                        spw))
+    tiles = trl._slab_tiles(P).numpy()
+    n, T = tiles.size, 128 // P.lanes_per_row
+    assert warp_ptr[0] == 0 and warp_ptr[-1] == n
+    assert (np.diff(warp_ptr) >= 0).all()
+    cuts = warp_ptr[1:-1][(warp_ptr[1:-1] > 0) & (warp_ptr[1:-1] < n)]
+    inside = cuts[tiles[cuts - 1] == tiles[cuts]]
+    np.testing.assert_array_equal(split, np.unique(tiles[inside]))
+    np.testing.assert_array_equal(
+        split_rows, [r for t in split for r in range(t * T, t * T + T)
+                     if r < sp.shape[0]])
+    if spw >= 10 ** 6:  # one range: no cut at all
+        assert warp_ptr.size == 2 and split.size == 0
+    x = np.random.default_rng(6).standard_normal(sp.shape[1])
+    y, writes = _walk_emulate(P, warp_ptr, split_rows, x)
+    assert writes.max() <= 1 and not np.isnan(y).any()
+    want = trl.spmv_sell_rowlane_reference(P, torch.from_numpy(
+        x.astype(np.float32))).double().numpy()
+    np.testing.assert_allclose(y, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("spw", [1, 2])
+def test_rowlane_walk_cuts_at_tile_starts(spw):
+    """With tiles of one or two slabs (the fixpoint solve's packs) and one
+    or two slabs a warp, every cut moves to a tile start: no tile is
+    split, so y needs no zero fill (the card's one launch).  A tile of
+    more than twice ``spw`` slabs is cut inside."""
+    tiles = np.repeat(np.arange(40), np.where(np.arange(40) % 3, 1, 2))
+    ptr, split, rows = trl.walk_ranges(tiles, np.ones(tiles.size, bool),
+                                       spw, 128, 40 * 128, torch.device(CPU))
+    ptr = ptr.numpy()
+    starts = np.flatnonzero(np.r_[True, tiles[1:] != tiles[:-1]])
+    assert np.isin(ptr[:-1], starts).all()
+    assert split.numel() == 0 and rows.numel() == 0
+    long = np.repeat(np.arange(3), [2, 9, 2])
+    ptr, split, _ = trl.walk_ranges(long, np.ones(long.size, bool), spw, 128,
+                                    3 * 128, torch.device(CPU))
+    assert split.tolist() == [1]
+
+
+def test_rowlane_walk_refuses_decreasing_tiles():
+    with pytest.raises(ValueError, match="never decrease"):
+        trl.walk_ranges(np.array([0, 2, 1]), np.ones(3, bool), 1, 128, 384,
+                        torch.device(CPU))
+
+
+@pytest.mark.parametrize("n_slabs,resident,want", [
+    (34866, 3168, 12), (66080, 3168, 7), (67712, 3168, 8), (638, 3168, 1)])
+def test_rowlane_default_spw(n_slabs, resident, want):
+    """The rowlane kernel's default slabs a warp: about 8, in whole waves
+    of the warps the card holds (``spgemm_xl``'s P takes one wave, the XL
+    CSR's packs three, the fixpoint solve's packs a slab a warp)."""
+    spw = trl.rowlane_default_spw(n_slabs, resident)
+    assert spw == want
+    waves = max(1, round(n_slabs / (8 * resident)))
+    assert -(-n_slabs // spw) <= waves * resident  # no partial extra wave
+
