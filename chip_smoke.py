@@ -145,7 +145,7 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2, 12, 5, 9, 7 and 1, ``variant`` lines time each knob
+   For rows 2, 12, 5, 9, 7, 1, 15 and 22, ``variant`` lines time each knob
    setting and ablation beside the default in the same call: the
    Blocked-ELL split over blocks, staging alone, no zero-row skip, FMAs
    alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
@@ -154,10 +154,15 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    under every value, the values alone; the superblock kernel's slabs a
    warp, no x gather, no padding skip and a zero fill of y alone; the
    rowlane kernel's slabs a warp and the sector mask off; the codebook
-   kernel's split of k (1, 2, 4, 8) (an ablation's result is not the
-   product).  The timing lines of rows 5, 9 and 7 also give each pack's
-   slabs, cells, fill and two layout floors: every plane byte, and the
-   bytes the kernel reads after its skips, at HBM's rate; row 7 is also
+   kernel's split of k (1, 2, 4, 8); the octet walk's slabs a range,
+   slab stages and slab groups and its copies and stores alone, on both
+   ``spgemm_xl`` packs and the clustered CSR's octet pack; the stream
+   copy's chunk,
+   stages and blocks an SM at 128 and 256 MiB (an ablation's result is
+   not the product).  The timing lines of rows 5, 9, 7 and 15 also give
+   each pack's slabs, cells, fill and two layout floors: every plane
+   byte, and the bytes the kernel reads after its skips, at HBM's rate
+   (row 15's with x and y); row 7 is also
    timed at the ``ilu_cg_xl`` fixpoint solve's two packs and at two small
    packs the cuts split, the bench ``trisolve/fixpoint`` pack and an n =
    4096, 64-a-row pack (each checked against its plain version first;
@@ -636,6 +641,22 @@ def rowlane_stats(P, mask) -> dict:
             "read_bytes": read, "read_floor_ms": read / PEAK_BYTES * 1e3}
 
 
+def octet_stats(P, items: int) -> dict:
+    """Row 15's pack (both sections) and its two layout floors at HBM's
+    rate, each with x read once and y written once: every slab's planes
+    (values, RT, CH and POS) read once, and the planes of the ``items``
+    slabs the walk lists only (it leaves the padding slabs unread)."""
+    sections = [P] + ([P.rem] if P.rem is not None else [])
+    n = sum(sec.n_slabs for sec in sections)
+    per_slab = 1024 * (P.vals.element_size() + 3)
+    xy = 4 * (P.shape[0] + P.shape[1])
+    return {"n_slabs": n, "walked_slabs": items, "cells": 1024 * n,
+            "fill": P.nnz / (1024 * n), "plane_bytes": n * per_slab,
+            "layout_floor_ms": (n * per_slab + xy) / PEAK_BYTES * 1e3,
+            "read_bytes": items * per_slab,
+            "read_floor_ms": (items * per_slab + xy) / PEAK_BYTES * 1e3}
+
+
 # the probe kernels' entries of the kernels line: (kernel, source,
 # replaces, the probe row (name, size) it takes its times from, the case
 # of phase 6's check)
@@ -850,6 +871,12 @@ def main() -> int:
 
     host_thread = threading.Thread(target=build_host)
     host_thread.start()
+    # the spgemm_xl operands (scipy's sampler, ~16 s an operand on the
+    # host) are drawn beside the build, which mostly waits on nvcc
+    xl_operands = {}
+    xl_thread = threading.Thread(
+        target=lambda: xl_operands.update(AB=spgemm_xl_operands()))
+    xl_thread.start()
     built = _build.build()
     host_thread.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1063,7 +1090,8 @@ def main() -> int:
         return out
 
     t = time.perf_counter()
-    sa, sb = spgemm_xl_operands()
+    xl_thread.join()  # drawn beside the build: ``seconds`` is the rest
+    sa, sb = xl_operands["AB"]
     A_g = CSR.from_scipy(sa, device=dev)
     B_g = CSR.from_scipy(sb, device=dev)
     want_c = (sa.astype(np.float64) @ sb.astype(np.float64)).tocsr()
@@ -1201,6 +1229,11 @@ def main() -> int:
                              lambda layout=layout: prepare_spmv(
                                  A_clu, layout=layout))
              for layout in ("octet", "superblock", "rowlane")}
+    # row 15 on its octet pack too: a small pack (64 octets of ~6 slabs),
+    # the bench row spmv_clustered/octet's
+    s3_check("spmv_octet", "clustered octet (auto)", P_clu["octet"],
+             octmod._spmv_octet_cuda, octmod.spmv_octet_reference, sp_clu,
+             x_clu, y_clu)
 
     # slice 4: triangular solves.  The factors and plans of the JAX
     # bench's solver rows, each with its host seconds; each kernel against
@@ -2658,6 +2691,41 @@ def main() -> int:
         variant("spmv_rowlane", label, "sector mask off",
                 dev_ms(lambda: rlmod._body_cuda(P, x_s, mask=False)), row)
 
+    def octet_variants(label, P, x_s, row):
+        # row 15's knobs beside the default (``octet_knobs``): slabs a
+        # range (the walked slabs over one wave of the blocks the card
+        # holds), slab stages a block (two a group) and slab groups a
+        # block; each gives A @ x
+        spr0, st0, g0 = octmod.octet_knobs(P)
+        for spr in sorted({max(1, spr0 // 2), 2 * spr0, 4 * spr0} - {spr0}):
+            variant("spmv_octet", label, f"spr={spr}",
+                    dev_ms(lambda spr=spr: octmod._spmv_octet_cuda(
+                        P, x_s, spr=spr)), row)
+        for st in sorted({g0, 3 * g0, 4 * g0} - {st0}):
+            variant("spmv_octet", label, f"stages={st}",
+                    dev_ms(lambda st=st: octmod._spmv_octet_cuda(
+                        P, x_s, stages=st, groups=g0)), row)
+        for g in sorted({1, 2, 4} - {g0}):
+            variant("spmv_octet", label, f"groups={g}",
+                    dev_ms(lambda g=g: octmod._spmv_octet_cuda(
+                        P, x_s, groups=g)), row)
+        variant("spmv_octet", label, "copies and stores only",
+                dev_ms(lambda: octmod._spmv_octet_cuda(
+                    P, x_s, copies_only=True)), row)
+
+    def copy_variants(label, x_s, row):
+        # row 22's knobs beside the default (32 KB chunks, 4 stages, one
+        # block an SM); each gives a copy
+        for name, kw in (("chunk=16KB", dict(chunk=16 << 10)),
+                         ("chunk=64KB stages=3", dict(chunk=64 << 10,
+                                                      stages=3)),
+                         ("stages=2", dict(stages=2)),
+                         ("stages=6", dict(stages=6)),
+                         ("blocks_per_sm=2 stages=3",
+                          dict(blocks_per_sm=2, stages=3))):
+            variant("stream_copy", label, name,
+                    dev_ms(lambda kw=kw: _stream_copy_cuda(x_s, **kw)), row)
+
     def codebook_variants(label, b_t, X, row):
         # row 1's split of k beside the default (``codebook_split``), the
         # partials of a split above 1 summed by a second kernel; each
@@ -2722,6 +2790,11 @@ def main() -> int:
     # with cuSPARSE on the same matrix; the window permute one stage at a
     # time, with one torch.gather of the composed window index
     s3_rows = {}
+    octet_packs = {  # case -> (pack, x)
+        "spgemm_xl P auto octet": (pp_auto.p_packed, xb["auto"]),
+        "spgemm_xl P octet trim_group=8 (rem)": (pp_trim.p_packed,
+                                                 xb["trim"]),
+        "clustered octet (auto)": (P_clu["octet"], x_clu)}
     for kname, cases in s3_cases.items():
         for case, kern, plain, sp, vb, x_dev in cases:
             flops, nbytes = sparse_work(sp, 1, vb)
@@ -2740,8 +2813,14 @@ def main() -> int:
             if (kname, case) == ("spmv_rowlane", "spgemm_xl P rowlane L=1"):
                 row.update(rowlane_stats(pp_rl.p_packed,
                                          rlmod.sector_mask(pp_rl.p_packed)))
+            if case in octet_packs:
+                P_o = octet_packs[case][0]
+                row.update(octet_stats(P_o,
+                                       octmod.octet_walk(P_o)[0].shape[0]))
             emit({"phase": "timing", **row})
             s3_rows[(kname, case)] = row
+    for case, (P_o, x_o) in octet_packs.items():
+        octet_variants(case, P_o, x_o, s3_rows[("spmv_octet", case)])
     superblock_variants("spgemm_xl P superblock", pp_sb.p_packed, xb["sb"],
                         s3_rows[("spmv_superblock", "spgemm_xl P superblock")])
     rowlane_variants("spgemm_xl P rowlane L=1", pp_rl.p_packed, xb["rl"],
@@ -3274,6 +3353,7 @@ def main() -> int:
         row["gb_per_s"] = 8.0 * n_el / (row["ms"] * 1e-3) / 1e9
         emit({"phase": "timing", **row})
         s8_rows[case] = row
+        copy_variants(case, x_s, row)
         del x_s, y_s
     emit({"phase": "timing", "kernel": "stream_copy",
           "case": "256 MiB / 128 MiB time ratio",

@@ -23,10 +23,13 @@ is found, the numpy repair (other, valid planes, equal to the JAX numpy
 path's).  Like the JAX packer it ignores a ``trim_group`` ≥ ``group``.
 
 ``spmv_octet(packed, x)`` runs ``spmv_octet_reference`` when all its
-inputs lie on the CPU, and otherwise launches ``csrc/spmv_octet.cu`` (a
-second launch for ``rem``) or raises.  The multi-RHS product
-``spmm_octet(packed, X)`` does the same with ``spmm_octet_reference`` and
-``csrc/spmm_octet.cu``.  Both are differentiable in their right-hand side
+inputs lie on the CPU, and otherwise launches ``csrc/spmv_octet.cu`` once
+over both sections, along a walk built once a pack (``octet_walk``: the
+slabs holding a value, octet by octet; ``octet_ranges``: whole octets cut
+into ranges of about equal work, a block each), or raises.  The multi-RHS
+product ``spmm_octet(packed, X)`` does the same with
+``spmm_octet_reference`` and ``csrc/spmm_octet.cu`` (a second launch for
+``rem``).  Both are differentiable in their right-hand side
 and in the values of both sections (the JAX wrappers' custom VJPs,
 ``spmv_octet.py:526-571`` and ``:698-735``).
 """
@@ -39,7 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import cached_on, sparse_container, static_field
 from ..formats.csr import CSR
 from . import _build
 from .spmv_dualgather import _SMEM_PREFETCH_BUDGET
@@ -452,7 +455,7 @@ def spmv_octet_reference(packed: Octet, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-_PLANE_ARGTYPES = (
+_MM_ARGTYPES = (
     ctypes.c_void_p,  # pos int8
     ctypes.c_void_p,  # chk int8
     ctypes.c_void_p,  # route int8
@@ -460,31 +463,45 @@ _PLANE_ARGTYPES = (
     ctypes.c_void_p,  # group_super (n_groups,) int32
     ctypes.c_void_p,  # slab_win (n_slabs,) int32
     ctypes.c_void_p,  # slab_oloc (n_slabs,) int32
-    ctypes.c_void_p,  # x (cols,) or X (cols, k) fp32
-    ctypes.c_void_p,  # y (rows,) or Y (rows, k) fp32, zeroed
+    ctypes.c_void_p,  # X (cols, k) fp32
+    ctypes.c_void_p,  # Y (rows, k) fp32, zeroed
     ctypes.c_int,  # rows
     ctypes.c_int,  # cols
-)
-_TAIL_ARGTYPES = (
+    ctypes.c_int,  # k
     ctypes.c_longlong,  # n_slabs
     ctypes.c_int,  # group
     ctypes.c_int,  # k_octets
     ctypes.c_int,  # bf16 values
     ctypes.c_void_p,  # stream
 )
-# spmv_octet(planes..., rows, cols, n_slabs, ...); spmm_octet adds k
-# after cols
-_ARGTYPES = {"spmv_octet": _PLANE_ARGTYPES + _TAIL_ARGTYPES,
-             "spmm_octet": _PLANE_ARGTYPES + (ctypes.c_int,) + _TAIL_ARGTYPES}
 
 
-def _launch(source: str, packed: Octet, X: torch.Tensor,
-            Y: torch.Tensor) -> None:
-    """``Y += A @ X`` over one section on the card: ``csrc/spmv_octet.cu``
-    for a vector, ``csrc/spmm_octet.cu`` for a (cols, k) matrix."""
+def _launch_mm(packed: Octet, X: torch.Tensor, Y: torch.Tensor) -> None:
+    """``Y += A @ X`` over one section on the card by
+    ``csrc/spmm_octet.cu`` (X a (cols, k) matrix)."""
+    planes = _planes(packed, "spmm_octet")
+    if X.device != packed.vals.device:
+        raise ValueError("spmm_octet: the pack and X must be contiguous on "
+                         "one CUDA device")
+    rows, cols = packed.shape
+    fn = _build.load("spmm_octet", _MM_ARGTYPES)
+    with torch.cuda.device(X.device):
+        err = fn(*(t.data_ptr() for t in planes), X.data_ptr(), Y.data_ptr(),
+                 rows, cols, X.shape[1], packed.n_slabs, packed.group,
+                 packed.k_octets, int(packed.vals.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_octet: launch failed with CUDA error {err}")
+    _build.launch_counts["spmm_octet"] += 1
+
+
+def _planes(packed: Octet, source: str):
+    """One section's seven tensors, checked: contiguous on one device,
+    their types and shapes consistent."""
     planes = (packed.pos, packed.chk, packed.route, packed.vals,
               packed.group_super, packed.slab_win, packed.slab_oloc)
-    if not all(t.device == X.device and t.is_contiguous() for t in planes):
+    dev = packed.vals.device
+    if not all(t.device == dev and t.is_contiguous() for t in planes):
         raise ValueError(f"{source}: the pack and x must be contiguous on "
                          "one CUDA device")
     n_groups, group = packed.route.shape[0], packed.group
@@ -496,33 +513,225 @@ def _launch(source: str, packed: Octet, X: torch.Tensor,
             or packed.slab_win.numel() != n_groups * group
             or packed.slab_oloc.numel() != n_groups * group):
         raise ValueError(f"{source}: inconsistent pack planes")
-    rows, cols = packed.shape
-    k = () if source == "spmv_octet" else (X.shape[1],)
-    fn = _build.load(source, _ARGTYPES[source])
-    with torch.cuda.device(X.device):
-        err = fn(*(t.data_ptr() for t in planes), X.data_ptr(), Y.data_ptr(),
-                 rows, cols, *k, packed.n_slabs, group, packed.k_octets,
-                 int(packed.vals.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{source}: launch failed with CUDA error {err}")
-    _build.launch_counts[source] += 1
+    return planes
 
 
-def _spmv_octet_cuda(packed: Octet, x: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# the card walk of the SpMV (csrc/spmv_octet.cu): its side structures,
+# built once a pack
+# ---------------------------------------------------------------------------
+
+def _sections(packed: Octet):
+    return [packed] + ([packed.rem] if packed.rem is not None else [])
+
+
+def _walk_build(packed: Octet):
+    """(items, oct_ptr) on the pack's device.  ``items`` (n_items, 2)
+    int32 lists (slab id, window) of every slab of both sections that
+    holds a nonzero value, octet by octet, the main section's before the
+    trim section's, each in slab order; a trim slab's id is the main
+    section's slab count plus its own.  ``oct_ptr`` (n_octets + 1,) int32
+    gives each octet's items.  A group's padding slabs hold only zeros and
+    are left out (so is a slab of explicit zeros: it adds nothing); the
+    value gradient keeps zero cells zero, so the list stays whole while
+    the values train."""
+    octs, ids, wins = [], [], []
+    base = 0
+    for sec in _sections(packed):
+        n = sec.n_slabs
+        nz = (sec.vals.reshape(n, _W) != 0).any(1).cpu().numpy()
+        s = np.flatnonzero(nz)
+        sup = sec.group_super.cpu().numpy().astype(np.int64)
+        octs.append(sup[s // sec.group] * sec.k_octets
+                    + sec.slab_oloc.reshape(-1).cpu().numpy()[s])
+        ids.append(s + base)
+        wins.append(sec.slab_win.reshape(-1).cpu().numpy()[s])
+        base += n
+    octet = np.concatenate(octs)
+    if octet.size and octet.max() >= packed.n_octets:
+        raise ValueError("spmv_octet: a slab's octet lies past the matrix")
+    order = np.argsort(octet, kind="stable")
+    items = np.stack([np.concatenate(ids)[order],
+                      np.concatenate(wins)[order]], axis=1)
+    oct_ptr = np.r_[0, np.cumsum(np.bincount(octet,
+                                             minlength=packed.n_octets))]
+    dev = packed.vals.device
+    return (torch.from_numpy(items.astype(np.int32)).to(dev),
+            torch.from_numpy(oct_ptr.astype(np.int32)).to(dev))
+
+
+def octet_ranges(oct_ptr: np.ndarray, spr: int) -> np.ndarray:
+    """(n_ranges + 1,) int64: the octets cut into contiguous ranges of
+    about ``spr`` walked slabs each, every octet whole.  An octet weighs
+    two units a slab and one for its store (an octet with no slab still
+    writes its 1024 zeros); the cuts go to the octet boundaries nearest
+    equal shares of the weight."""
+    n_oct = oct_ptr.size - 1
+    n_items = int(oct_ptr[-1])
+    n_ranges = min(max(1, -(-n_items // max(spr, 1))), n_oct)
+    cost = np.cumsum(2 * np.diff(oct_ptr) + 1)  # through each octet
+    want = np.arange(1, n_ranges) * (cost[-1] / n_ranges)
+    o = np.searchsorted(cost, want)  # the octet that crosses each share
+    before = np.where(o > 0, cost[np.maximum(o - 1, 0)], 0)
+    cut = np.where(want - before <= cost[o] - want, o, o + 1)
+    return np.unique(np.r_[0, np.clip(cut, 1, n_oct - 1), n_oct])
+
+
+_WALKS: dict = {}
+
+
+def octet_walk(packed: Octet):
+    """The pack's ``_walk_build``, built once per pack."""
+    return cached_on(_WALKS, packed, _walk_build)
+
+
+_BLOCKS: dict = {}
+
+
+def resident_blocks(device: torch.device, stages: int, groups: int,
+                    bf16: bool) -> int:
+    """The blocks of the walk kernel the card holds at once, at ``stages``
+    slab stages (0: the kernel's default) and ``groups`` slab groups a
+    block, asked once a card and setting."""
+    key = (device.index, stages, groups, bf16)
+    if key not in _BLOCKS:
+        fn = _build.load("spmv_octet", (ctypes.c_int,) * 3,
+                         "spmv_octet_blocks")
+        with torch.cuda.device(device):
+            n = fn(stages, groups, int(bf16))
+        if n <= 0:
+            raise RuntimeError("spmv_octet: the card's occupancy query "
+                               "failed")
+        _BLOCKS[key] = n
+    return _BLOCKS[key]
+
+
+def octet_default_groups(n_items: int, n_octets: int, resident: int) -> int:
+    """The walk's default slab groups a block: 1 where the octets alone
+    fill the ``resident`` one-group blocks the card holds; else as many
+    (2 or 4) as the octets' mean slab count asks, so that a pack of few
+    octets of many slabs does not walk each octet as one chain."""
+    if n_octets >= resident:
+        return 1
+    mean = -(-n_items // max(n_octets, 1))
+    return 1 if mean <= 1 else 2 if mean <= 2 else 4
+
+
+def octet_default_spr(n_items: int, resident: int) -> int:
+    """The walk's default slabs a range: the walked slabs over one wave of
+    the ``resident`` blocks the card holds (a small pack then takes an
+    octet a block)."""
+    return max(1, -(-n_items // max(resident, 1)))
+
+
+def octet_knobs(packed: Octet, spr: int = 0, stages: int = 0,
+                groups: int = 0):
+    """(spr, stages, groups) of a launch on the card, each 0 resolved to
+    its default: ``octet_default_groups``, two stages a group, and
+    ``octet_default_spr`` over the blocks the card then holds."""
+    items, _ = octet_walk(packed)
+    dev = packed.vals.device
+    bf16 = packed.vals.dtype == torch.bfloat16
+    if groups == 0:
+        groups = octet_default_groups(items.shape[0], packed.n_octets,
+                                      resident_blocks(dev, 2, 1, bf16))
+    stages = stages or 2 * groups
+    if spr == 0:
+        spr = octet_default_spr(items.shape[0],
+                                resident_blocks(dev, stages, groups, bf16))
+    return spr, stages, groups
+
+
+def _launch_build(packed: Octet, spr: int, stages: int, groups: int):
+    """What a launch on the pack passes besides x, y and the stream, at one
+    setting of the knobs: (the arguments before x, those after y, the side
+    tensors the pointers name)."""
+    sections = _sections(packed)
+    bf16 = packed.vals.dtype == torch.bfloat16
+    planes = []
+    for sec in sections:
+        p = _planes(sec, "spmv_octet")
+        if sec.vals.dtype != packed.vals.dtype or sec.shape != packed.shape:
+            raise ValueError("spmv_octet: the sections differ in value type "
+                             "or shape")
+        if any(t.data_ptr() % 16 for t in p[:4]):
+            raise ValueError("spmv_octet: the planes must be 16-byte "
+                             "aligned for the bulk copies")
+        planes.append(p[:4])
+    rem = planes[1] if len(planes) > 1 else (None,) * 4
+    items, oct_ptr = octet_walk(packed)
+    spr, stages, groups = octet_knobs(packed, spr, stages, groups)
+    dev = packed.vals.device
+    ranges = torch.from_numpy(octet_ranges(oct_ptr.cpu().numpy(), spr)
+                              .astype(np.int32)).to(dev)
+    before = (*(t.data_ptr() for t in planes[0]),
+              *(None if t is None else t.data_ptr() for t in rem),
+              packed.n_slabs, items.data_ptr(), oct_ptr.data_ptr(),
+              ranges.data_ptr(), ranges.numel() - 1)
+    after = (*packed.shape, stages, groups, int(bf16))
+    return before, after, (items, oct_ptr, ranges)
+
+
+_WALK_ARGTYPES = (
+    ctypes.c_void_p,  # pos int8
+    ctypes.c_void_p,  # chk int8
+    ctypes.c_void_p,  # route int8
+    ctypes.c_void_p,  # vals fp32 or bf16
+    ctypes.c_void_p,  # rem pos, or null
+    ctypes.c_void_p,  # rem chk, or null
+    ctypes.c_void_p,  # rem route, or null
+    ctypes.c_void_p,  # rem vals, or null
+    ctypes.c_int,  # the main section's slabs
+    ctypes.c_void_p,  # items (n_items, 2) int32
+    ctypes.c_void_p,  # oct_ptr (n_octets + 1,) int32
+    ctypes.c_void_p,  # range_ptr (n_ranges + 1,) int32
+    ctypes.c_int,  # n_ranges
+    ctypes.c_void_p,  # x (cols,) fp32
+    ctypes.c_void_p,  # y (rows,) fp32, every row written
+    ctypes.c_int,  # rows
+    ctypes.c_int,  # cols
+    ctypes.c_int,  # stages (0: the default)
+    ctypes.c_int,  # slab groups a block: 1, 2 or 4
+    ctypes.c_int,  # bf16 values
+    ctypes.c_int,  # copies only (an ablation: zeros stored)
+    ctypes.c_void_p,  # stream
+)
+
+_LAUNCHES: dict = {}
+
+
+def _spmv_octet_cuda(packed: Octet, x: torch.Tensor, *, spr: int = 0,
+                     stages: int = 0, groups: int = 0,
+                     copies_only: bool = False) -> torch.Tensor:
+    """The walk kernel, one launch over both sections.  ``spr`` (walked
+    slabs a range; 0: ``octet_default_spr``), ``stages`` (slab stages a
+    block, at least ``groups``; 0: two a group) and ``groups`` (slab
+    groups a block, 1, 2 or 4; 0: ``octet_default_groups``) are knobs for
+    measurements only; each gives A @ x.  ``copies_only`` is an ablation
+    (the slabs' copies and y's stores alone): its result is zeros, not
+    the product.  The launch's arguments are built once a pack and
+    setting, so a call makes one lookup."""
     _check(packed, x)
-    if not x.is_cuda:
+    if not x.is_cuda or x.device != packed.vals.device:
         raise ValueError(f"spmv_octet: x must lie on the pack's CUDA device, "
                          f"not {x.device}")
     rows, cols = packed.shape
-    y = torch.zeros(rows, dtype=torch.float32, device=x.device)
     if rows == 0 or cols == 0:
-        return y
-    x = x.contiguous()
-    section = packed
-    while section is not None:
-        _launch("spmv_octet", section, x, y)
-        section = section.rem
+        return torch.zeros(rows, dtype=torch.float32, device=x.device)
+    launches = cached_on(_LAUNCHES, packed, lambda _: {})
+    key = (spr, stages, groups)
+    entry = launches.get(key)
+    if entry is None:
+        entry = launches[key] = _launch_build(packed, spr, stages, groups)
+    before, after, _ = entry
+    y = torch.empty(rows, dtype=torch.float32, device=x.device)
+    fn = _build.load("spmv_octet", _WALK_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(*before, x.contiguous().data_ptr(), y.data_ptr(), *after,
+                 int(copies_only), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmv_octet: launch failed with CUDA error {err}")
+    _build.launch_counts["spmv_octet"] += 1
     return y
 
 
@@ -650,7 +859,7 @@ def _spmm_octet_cuda(packed: Octet, X: torch.Tensor) -> torch.Tensor:
     X = X.contiguous()
     section = packed
     while section is not None:
-        _launch("spmm_octet", section, X, Y)
+        _launch_mm(section, X, Y)
         section = section.rem
     return Y
 

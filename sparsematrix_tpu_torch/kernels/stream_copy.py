@@ -24,6 +24,9 @@ _ARGTYPES = (
     ctypes.c_void_p,  # x fp32
     ctypes.c_void_p,  # y fp32
     ctypes.c_longlong,  # n
+    ctypes.c_int,  # chunk bytes (0: the default)
+    ctypes.c_int,  # stages (0: the default)
+    ctypes.c_int,  # blocks a streaming multiprocessor (0: the default)
     ctypes.c_void_p,  # stream
 )
 
@@ -33,7 +36,12 @@ def stream_copy_reference(x: torch.Tensor) -> torch.Tensor:
     return x.clone()
 
 
-def _stream_copy_cuda(x: torch.Tensor) -> torch.Tensor:
+def _stream_copy_cuda(x: torch.Tensor, *, chunk: int = 0, stages: int = 0,
+                      blocks_per_sm: int = 0) -> torch.Tensor:
+    """The kernel.  ``chunk`` (bytes a bulk copy, a multiple of 16),
+    ``stages`` (shared buffers a block) and ``blocks_per_sm`` are knobs
+    for measurements only, 0 each for the kernel's default; each gives a
+    copy."""
     if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("stream_copy: x must be a contiguous fp32 tensor "
                          f"on a CUDA device (got {x.dtype} on {x.device}, "
@@ -45,9 +53,9 @@ def _stream_copy_cuda(x: torch.Tensor) -> torch.Tensor:
         x.shape)
     if n == 0:
         return y
-    fn = _build.load("stream_copy", _ARGTYPES)
+    fn = _build.load("stream_copy", _ARGTYPES, "stream_copy_tuned")
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), n,
+        err = fn(x.data_ptr(), y.data_ptr(), n, chunk, stages, blocks_per_sm,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"stream_copy: launch failed with CUDA error {err}")

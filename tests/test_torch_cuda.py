@@ -502,7 +502,7 @@ def test_superblock_kernel(dev, case):
 
 
 # multi-window and odd shapes, depth (deg ~15 a window), the trim section
-# (rem: a second launch), bf16 values
+# (rem: in the same launch), bf16 values
 OCT_CARD = [
     ((3000, 5000), 0.0005, dict(k_octets=4)),
     ((1100, 900), 0.001, dict(k_octets=2)),
@@ -517,9 +517,83 @@ def test_octet_kernel(dev, case):
     shape, density, kw = case
     rng = np.random.default_rng(shape[0] + 7 * shape[1])
     A = _spmv_case(dev, _sparse(rng, shape, density), pack_octet, spmv_octet,
-                   spmv_octet_reference, "spmv_octet",
-                   n_launch=2 if "trim_group" in kw else 1, **kw)
+                   spmv_octet_reference, "spmv_octet", **kw)
     assert (A.rem is not None) == ("trim_group" in kw)
+
+
+def _octet_walk_case(dev, sp, **kw):
+    """The walk kernel on ``sp``'s pack: against its plain version, at
+    every knob setting (slabs a range, stages, slab groups), in one
+    launch, and twice in a row bit for bit (no atomics: each octet is one
+    block's, its groups' sums added in group order)."""
+    octmod = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_octet")
+    A = pack_octet(CSR.from_scipy(sp, device=dev), **kw)
+    x = torch.from_numpy(np.random.default_rng(sp.shape[0]).standard_normal(
+        sp.shape[1]).astype(np.float32)).to(dev)
+    want = spmv_octet_reference(A, x)
+    rows = sp.shape[0]
+    # what the allocator hands back next holds NaN: rows the kernel left
+    # unwritten would show
+    stale = torch.full((rows,), float("nan"), device=dev)
+    del stale
+    before = _build.launch_counts["spmv_octet"]
+    got = octmod._spmv_octet_cuda(A, x)
+    assert _build.launch_counts["spmv_octet"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert_kernel_close(got, want)
+    assert torch.equal(got, octmod._spmv_octet_cuda(A, x))
+    for spr, stages, groups in ((1, 0, 1), (2, 2, 1), (0, 1, 1),
+                                (0, 16, 1), (1 << 20, 3, 1), (0, 0, 2),
+                                (3, 3, 2), (0, 0, 4), (1, 4, 4),
+                                (0, 16, 4)):
+        assert_kernel_close(octmod._spmv_octet_cuda(
+            A, x, spr=spr, stages=stages, groups=groups), want)
+    with pytest.raises(RuntimeError):  # fewer stages than groups
+        octmod._spmv_octet_cuda(A, x, stages=1, groups=2)
+    # the ablation stores every row, zeros
+    assert bool((octmod._spmv_octet_cuda(A, x, copies_only=True) == 0).all())
+    sp64 = sp.astype(np.float64)
+    if kw.get("dtype") is torch.bfloat16:
+        sp64.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          sp64 @ x.double().cpu().numpy())
+    return A
+
+
+@pytest.mark.parametrize("case", OCT_CARD, ids=_dg_id)
+def test_octet_walk_kernel(dev, case):
+    shape, density, kw = case
+    rng = np.random.default_rng(shape[0] + 11 * shape[1])
+    _octet_walk_case(dev, _sparse(rng, shape, density), **kw)
+
+
+def test_octet_walk_one_slab(dev):
+    """A pack of one slab (three entries in one octet of a 2500-row
+    matrix): one range holds it, the other octets are stored as zeros."""
+    import scipy.sparse as sps
+
+    sp = sps.csr_matrix((np.array([3.0, -2.0, 5.0], np.float32),
+                         (np.array([1030, 1031, 2047]),
+                          np.array([7, 900, 1000]))), shape=(2500, 1600))
+    A = _octet_walk_case(dev, sp, k_octets=2)
+    octmod = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_octet")
+    items, oct_ptr = octmod.octet_walk(A)
+    assert items.shape[0] == 1 and oct_ptr.tolist() == [0, 0, 1, 1]
+
+
+def test_octet_walk_empty_octets(dev):
+    """Most octets have no slab (entries in 3 of 40 octets, rows not a
+    multiple of 1024), with a trim section: their rows come back 0."""
+    rng = np.random.default_rng(23)
+    d = np.zeros((40 * 1024 - 300, 3000), np.float32)
+    for o in (0, 17, 39):
+        r = rng.integers(o * 1024, min((o + 1) * 1024, d.shape[0]), 400)
+        d[r, rng.integers(0, 3000, 400)] = rng.uniform(-1000, 1000, 400)
+    import scipy.sparse as sps
+
+    A = _octet_walk_case(dev, sps.csr_matrix(d), group=8, k_octets=4,
+                         trim_group=2)
+    assert A.rem is not None
 
 
 def test_octet_columns_past_cols(dev):
@@ -1559,8 +1633,11 @@ def test_dist_gloo_ranks_on_card(dev, tmp_path):
     assert rep["launches"].get("spmm_rowlane", 0) > 0
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 4097, 65536 + 3,
-                               1 << 22])
+# 1-15; one below and one above a 32 KB chunk (8192 fp32) and a ring of
+# four; 128 MiB + 3
+@pytest.mark.parametrize("n", [*range(1, 16), 4097, 8191, 8193,
+                               4 * 8192 - 1, 4 * 8192 + 1, 65536 + 3,
+                               1 << 22, (1 << 25) + 3])
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
 def test_stream_copy_bit_equal(dev, n, offset):
     """Row 22 against ``x.clone()``, bit for bit, at odd lengths and at
@@ -1579,6 +1656,24 @@ def test_stream_copy_bit_equal(dev, n, offset):
     assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous()
     assert torch.equal(y.view(torch.int32), want.view(torch.int32))
     assert y.data_ptr() % 16 == x.data_ptr() % 16
+
+
+@pytest.mark.parametrize("knobs", [dict(chunk=16 * 1024),
+                                   dict(chunk=64 * 1024, stages=3),
+                                   dict(stages=2), dict(stages=6),
+                                   dict(blocks_per_sm=2, stages=3),
+                                   dict(chunk=48)])
+def test_stream_copy_knobs_bit_equal(dev, knobs):
+    """Every knob setting of the bulk path copies bit for bit (a 48-byte
+    chunk: thousands of chunks a block)."""
+    from sparsematrix_tpu_torch.kernels.stream_copy import _stream_copy_cuda
+
+    for n, offset in ((1 << 20) + 5, 1), (4 * 16384 + 1, 0), (3, 2):
+        base = torch.randn(n + offset, device=dev)
+        x = base[offset:]
+        y = _stream_copy_cuda(x, **knobs)
+        torch.cuda.synchronize()
+        assert torch.equal(y.view(torch.int32), x.view(torch.int32))
 
 
 def test_stream_copy_refuses_other_inputs(dev):

@@ -300,3 +300,193 @@ def test_spmm_prepare_spmv_octet_auto_matches_jax():
     np.testing.assert_allclose(got, np.asarray(joc.spmm_octet(
         JP, jnp.asarray(X))), **TOL)
     np.testing.assert_allclose(got, sp.astype(np.float64) @ X, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the card walk's side structures (``octet_walk``, ``octet_ranges``) and
+# the plain walk over them
+
+WALK_CASES = ["multi-window", "odd-shape", "depth", "trim", "bf16"]
+
+
+def walk_plain(packed, x, ranges=None):
+    """The card walk (``csrc/spmv_octet.cu``) in plain PyTorch, over the
+    pack's ``octet_walk`` lists: range by range, octet by octet, each
+    listed slab's cells under a nonzero value adding ``vals * x[col]`` (a
+    column past ``cols`` read as 0) into the octet's 1024 sums, which are
+    stored whole (zeros for an octet with no slab) and cut at ``rows``.
+    ``ranges`` (default: one range) must cover the octets."""
+    rows, cols = packed.shape
+    items, oct_ptr = toc.octet_walk(packed)
+    items, oct_ptr = items.long(), oct_ptr.numpy()
+    n_oct = oct_ptr.size - 1
+    ranges = np.array([0, n_oct]) if ranges is None else ranges
+    assert ranges[0] == 0 and ranges[-1] == n_oct
+    assert (np.diff(ranges) > 0).all()
+    sections = [packed] + ([packed.rem] if packed.rem is not None else [])
+    n_main = packed.n_slabs
+    planes = [(s.pos.reshape(-1, 8, 128).long() & 127,
+               s.chk.reshape(-1, 8, 128).long() & 7,
+               s.route.reshape(-1, 8, 128).long() & 127,
+               s.vals.reshape(-1, 8, 128).float()) for s in sections]
+    y = torch.zeros(n_oct * 1024, dtype=torch.float32)
+    u = torch.arange(8)[:, None]
+    for r in range(len(ranges) - 1):
+        for o in range(ranges[r], ranges[r + 1]):
+            acc = torch.zeros(8, 128, dtype=torch.float32)
+            for i in range(oct_ptr[o], oct_ptr[o + 1]):
+                slab, win = int(items[i, 0]), int(items[i, 1])
+                sec = int(slab >= n_main)
+                pp, ck, rt, vv = (a[slab - sec * n_main]
+                                  for a in planes[sec])
+                c = ck[u, rt]
+                col = win * 1024 + c * 128 + pp[c, rt]
+                ok = (vv != 0) & (col < cols)
+                acc = acc + vv * torch.where(
+                    ok, x[col.clamp(max=cols - 1)], torch.zeros(()))
+            y[o * 1024:(o + 1) * 1024] = acc.reshape(-1)
+    return y[:rows]
+
+
+def _slab_octets(sec):
+    """Each slab's octet, from the section's group arrays."""
+    sup = sec.group_super.numpy().astype(np.int64)
+    n = sec.n_slabs
+    return (np.repeat(sup, sec.group)[:n] * sec.k_octets
+            + sec.slab_oloc.reshape(-1).numpy()[:n])
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_octet_walk_lists_each_real_slab_once(case):
+    """Every slab of both sections that holds an entry is listed once,
+    with its window, under its octet; no padding slab is listed; the
+    listed slabs hold all nnz entries."""
+    shape, density, kw = CASES[case]
+    A, _, sp = both(shape, density)
+    assert (sp.data != 0).all()
+    packed = toc.pack_octet(A, **kw)
+    items, oct_ptr = toc.octet_walk(packed)
+    items, oct_ptr = items.numpy(), oct_ptr.numpy()
+    assert oct_ptr.shape == (packed.n_octets + 1,) and oct_ptr[0] == 0
+    assert (np.diff(oct_ptr) >= 0).all() and oct_ptr[-1] == len(items)
+    sections = [packed] + ([packed.rem] if packed.rem is not None else [])
+    assert (packed.rem is not None) == (case == "trim")
+    real, octet_of, win_of, cells = [], [], [], 0
+    base = 0
+    for sec in sections:
+        nz = (sec.vals.float().reshape(sec.n_slabs, -1) != 0)
+        real.append(np.flatnonzero(nz.any(1).numpy()) + base)
+        octet_of.append(_slab_octets(sec))
+        win_of.append(sec.slab_win.reshape(-1).numpy())
+        cells += int(nz.sum())
+        base += sec.n_slabs
+    real = np.concatenate(real)
+    octet_of, win_of = np.concatenate(octet_of), np.concatenate(win_of)
+    # each real slab once, nothing else (a padding slab holds only zeros)
+    assert np.array_equal(np.sort(items[:, 0]), real)
+    assert len(real) < base  # padding slabs to leave out
+    assert cells == sp.nnz
+    # under its own octet, with its own window
+    listed_octet = np.repeat(np.arange(packed.n_octets), np.diff(oct_ptr))
+    assert np.array_equal(octet_of[items[:, 0]], listed_octet)
+    assert np.array_equal(win_of[items[:, 0]], items[:, 1])
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_octet_ranges_cover_whole_octets(case):
+    """Any slabs a range cuts the octets into ranges that cover
+    [0, n_octets) in order, each octet whole, at most one range an octet
+    and about the asked slabs a range."""
+    shape, density, kw = CASES[case]
+    A, _, _ = both(shape, density)
+    packed = toc.pack_octet(A, **kw)
+    _, oct_ptr = toc.octet_walk(packed)
+    oct_ptr = oct_ptr.numpy()
+    n_items = int(oct_ptr[-1])
+    for spr in (1, 2, 3, 5, 8, n_items, 10 * n_items):
+        r = toc.octet_ranges(oct_ptr, spr)
+        assert r[0] == 0 and r[-1] == packed.n_octets
+        assert (np.diff(r) > 0).all()
+        assert len(r) - 1 <= min(packed.n_octets, max(1, -(-n_items // spr)))
+    assert len(toc.octet_ranges(oct_ptr, 10 * n_items)) == 2
+    assert toc.octet_default_spr(n_items, 1) == max(1, n_items)
+    assert toc.octet_default_spr(n_items, 10 ** 6) == 1
+
+
+def test_octet_ranges_balance():
+    """Octets of 0-6 slabs: the ranges' weights (two a slab, one an
+    octet) stay within one octet's weight of an equal share."""
+    rng = np.random.default_rng(30)
+    counts = rng.integers(0, 7, 500)
+    oct_ptr = np.r_[0, np.cumsum(counts)]
+    r = toc.octet_ranges(oct_ptr, 8)
+    cost = np.r_[0, np.cumsum(2 * counts + 1)]
+    share = cost[-1] / (len(r) - 1)
+    assert len(r) - 1 == -(-int(counts.sum()) // 8)
+    assert (np.abs(np.diff(cost[r]) - share) <= 13).all()
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_octet_walk_plain_matches_reference_and_jax(case):
+    """The plain walk over the lists, in one range and in ranges of 2 and
+    3 slabs, equals ``spmv_octet_reference``, the JAX ``spmv_octet``
+    (Pallas in interpret mode) and fp64 (rtol 2e-3, atol 0.5)."""
+    shape, density, kw = CASES[case]
+    A, JA, sp = both(shape, density)
+    packed = toc.pack_octet(A, **kw)
+    jpacked = joc.pack_octet(JA, **_jax_kw(kw))
+    x = np.random.default_rng(31).standard_normal(shape[1]).astype(
+        np.float32)
+    want = toc.spmv_octet_reference(packed, torch.from_numpy(x)).numpy()
+    jy = np.asarray(joc.spmv_octet(jpacked, jnp.asarray(x)))
+    sp64 = sp.astype(np.float64)
+    if kw.get("dtype") is torch.bfloat16:
+        sp64.data = torch.from_numpy(sp.data).to(torch.bfloat16).double().numpy()
+    _, oct_ptr = toc.octet_walk(packed)
+    for spr in (None, 2, 3):
+        ranges = None if spr is None else toc.octet_ranges(oct_ptr.numpy(),
+                                                           spr)
+        got = walk_plain(packed, torch.from_numpy(x), ranges)
+        assert got.dtype == torch.float32 and got.shape == (shape[0],)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), jy, **TOL)
+        np.testing.assert_allclose(got.numpy(), sp64 @ x, **TOL)
+
+
+def test_octet_walk_plain_rows_past_the_last_octet_and_no_slab():
+    """Octets with no slab come back 0; the ragged last octet is cut at
+    ``rows``; a walk of an all-zero pack lists nothing."""
+    d = np.zeros((3 * 1024 - 100, 2100), np.float32)
+    d[1030, 5], d[1031, 2050], d[3 * 1024 - 101, 7] = 3.0, -2.0, 5.0
+    sp = sps.csr_matrix(d)
+    packed = toc.pack_octet(smt.CSR.from_scipy(sp, device=CPU), k_octets=2)
+    items, oct_ptr = toc.octet_walk(packed)
+    assert oct_ptr.tolist() == [0, 0, 2, 3]
+    x = np.arange(2100, dtype=np.float32)
+    got = walk_plain(packed, torch.from_numpy(x)).numpy()
+    assert got.shape == (3 * 1024 - 100,)
+    np.testing.assert_array_equal(got, d.astype(np.float64) @ x)
+    empty = toc.pack_octet(smt.CSR.fromdense(np.zeros((64, 64), np.float32),
+                                             device=CPU))
+    items, oct_ptr = toc.octet_walk(empty)
+    assert items.shape == (0, 2) and oct_ptr.tolist() == [0, 0]
+    assert (walk_plain(empty, torch.ones(64)) == 0).all()
+
+
+@pytest.mark.parametrize("n_items,n_octets,resident,want", [
+    (9365, 4261, 1056, 1),  # enough octets for one-group blocks
+    (384, 64, 1056, 4),  # few octets of ~6 slabs
+    (128, 64, 1056, 2),
+    (64, 64, 1056, 1),  # an octet's one slab needs no second group
+    (0, 3, 1056, 1),
+])
+def test_octet_default_groups(n_items, n_octets, resident, want):
+    assert toc.octet_default_groups(n_items, n_octets, resident) == want
+
+
+def test_rows_script_needs_a_card(monkeypatch):
+    """``bench/rows.py`` (rows 15-17 and 22 of one tree against another)
+    refuses to run without a CUDA card: it prints no times."""
+    rows = importlib.import_module("sparsematrix_tpu_torch.bench.rows")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert rows.main(["--no-bench"]) == 2
