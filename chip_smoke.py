@@ -145,8 +145,8 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2, 12, 5, 9, 7, 1, 15 and 22, ``variant`` lines time each knob
-   setting and ablation beside the default in the same call: the
+   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19 and 21, ``variant`` lines time
+   each knob setting and ablation beside the default in the same call: the
    Blocked-ELL split over blocks, staging alone, no zero-row skip, FMAs
    alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
    tile (k = 32), no X gather, decode alone; the SELL kernel's slabs a
@@ -158,8 +158,11 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    slab stages and slab groups and its copies and stores alone, on both
    ``spgemm_xl`` packs and the clustered CSR's octet pack; the stream
    copy's chunk,
-   stages and blocks an SM at 128 and 256 MiB (an ablation's result is
-   not the product).  The timing lines of rows 5, 9, 7 and 15 also give
+   stages and blocks an SM at 128 and 256 MiB; the cluster chain's
+   cluster size and ring stages, its hop alone and hop with x's read, at
+   the 256² IC(0) L plan, each with µs a dependent step (an ablation's
+   result is not the product).  The trisolve timing lines give µs a
+   dependent step too.  The timing lines of rows 5, 9, 7 and 15 also give
    each pack's slabs, cells, fill and two layout floors: every plane
    byte, and the bytes the kernel reads after its skips, at HBM's rate
    (row 15's with x and y); row 7 is also
@@ -2582,12 +2585,12 @@ def main() -> int:
         emit({"phase": "timing", **row})
         return row
 
-    def variant(kernel, case, name, ms, base):
+    def variant(kernel, case, name, ms, base, **extra):
         """A knob setting or an ablation of a kernel beside its default
         (``base``, this run's timing line), in the same call."""
         emit({"phase": "variant", "kernel": kernel, "case": case,
               "variant": name, "ms": ms, "default_ms": base["ms"],
-              "ratio": ms / base["ms"]})
+              "ratio": ms / base["ms"], **extra})
 
     def bell_variants(label, bell, X, row, splits):
         # row 2's split over blocks (the knob), then what sets its pace:
@@ -2725,6 +2728,22 @@ def main() -> int:
                           dict(blocks_per_sm=2, stages=3))):
             variant("stream_copy", label, name,
                     dev_ms(lambda kw=kw: _stream_copy_cuda(x_s, **kw)), row)
+
+    def chain_variants(kname, label, plan, R, row):
+        # rows 19 and 21: the cluster chain's knobs beside the default
+        # (cluster size, ``CHAIN_CLUSTER``, and ring stages; each gives x)
+        # and its hop parts (ablations, not x), each with µs a dependent
+        # step
+        bk = torch.randn(plan.S * R * 128, device=dev)
+        knobs = ([("default knobs, the launch alone", {})]
+                 + [(f"cluster={c}", dict(cluster=c)) for c in (2, 4, 8, 16)
+                    if c != twmod.CHAIN_CLUSTER]
+                 + [(f"stages={st}", dict(stages=st)) for st in (1, 2, 3)]
+                 + [("hop alone (no x read, no product)", dict(parts=1)),
+                    ("hop and x's read (no product)", dict(parts=2))])
+        for name, kw in knobs:
+            ms = dev_ms(lambda kw=kw: twmod._chain_cuda(plan, bk, R, **kw))
+            variant(kname, label, name, ms, row, us_a_step=1e3 * ms / plan.S)
 
     def codebook_variants(label, b_t, X, row):
         # row 1's split of k beside the default (``codebook_split``), the
@@ -3109,8 +3128,12 @@ def main() -> int:
                    "launches": main_launches[kname], "bound_ms": bms,
                    "bound_by": by, "flops": flops, "bytes": nbytes,
                    "dependent_steps": int(steps)}
+            row["us_a_step"] = 1e3 * row["ms"] / int(steps)
             emit({"phase": "timing", **row})
             s4_rows[(kname, case)] = row
+            if case in ("ic0 L Poisson 256^2 (K=2)",
+                        "ic0 L Poisson 256^2 k=8"):
+                chain_variants(kname, case, plan, R, row)
     emit({"phase": "library_note", "call": "torch.triangular_solve(B, "
           "A_csr)", "absent_because": lib_note})
 

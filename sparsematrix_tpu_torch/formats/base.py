@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["SparseFormat", "sparse_container", "pad_to", "default_index_dtype",
-           "host_values", "cached_on"]
+           "host_values", "cached_on", "values_version"]
 
 default_index_dtype = torch.int32
 
@@ -41,16 +41,30 @@ def host_values(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
-def cached_on(cache: dict, A, build):
+def values_version(*tensors):
+    """The in-place write counters of ``tensors`` (torch adds one to a
+    tensor's ``_version`` at every in-place write), to key a cache of what
+    is built from their values.  An inference tensor keeps no counter:
+    None stands for it."""
+    return tuple(None if t.is_inference() else t._version for t in tensors)
+
+
+def cached_on(cache: dict, A, build, version=None):
     """``build(A)``, computed once per container: keyed by identity (a
-    container holds unhashable tensors), the entry leaves with ``A``."""
+    container holds unhashable tensors), the entry leaves with ``A``.  An
+    entry is ``(weakref to A, value)``; with a ``version``
+    (``values_version`` of what ``build`` reads) it is ``(weakref,
+    (version, value))``, and another version builds it anew."""
     key = id(A)
     entry = cache.get(key)
     if entry is not None and entry[0]() is A:
-        return entry[1]
+        if version is None:
+            return entry[1]
+        if entry[1][0] == version:
+            return entry[1][1]
     value = build(A)
     ref = weakref.ref(A, lambda _unused, k=key: cache.pop(k, None))
-    cache[key] = (ref, value)
+    cache[key] = (ref, value if version is None else (version, value))
     return value
 
 

@@ -42,7 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..formats.base import cached_on, sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from . import _build
 from .spmv_dualgather import _SMEM_PREFETCH_BUDGET
@@ -525,6 +526,10 @@ def _sections(packed: Octet):
     return [packed] + ([packed.rem] if packed.rem is not None else [])
 
 
+def _vals_version(packed: Octet):
+    return values_version(*(sec.vals for sec in _sections(packed)))
+
+
 def _walk_build(packed: Octet):
     """(items, oct_ptr) on the pack's device.  ``items`` (n_items, 2)
     int32 lists (slab id, window) of every slab of both sections that
@@ -581,8 +586,9 @@ _WALKS: dict = {}
 
 
 def octet_walk(packed: Octet):
-    """The pack's ``_walk_build``, built once per pack."""
-    return cached_on(_WALKS, packed, _walk_build)
+    """The pack's ``_walk_build``, built once per pack and state of its
+    sections' values (an in-place write into ``vals`` builds it anew)."""
+    return cached_on(_WALKS, packed, _walk_build, _vals_version(packed))
 
 
 _BLOCKS: dict = {}
@@ -718,7 +724,8 @@ def _spmv_octet_cuda(packed: Octet, x: torch.Tensor, *, spr: int = 0,
     rows, cols = packed.shape
     if rows == 0 or cols == 0:
         return torch.zeros(rows, dtype=torch.float32, device=x.device)
-    launches = cached_on(_LAUNCHES, packed, lambda _: {})
+    launches = cached_on(_LAUNCHES, packed, lambda _: {},
+                         _vals_version(packed))
     key = (spr, stages, groups)
     entry = launches.get(key)
     if entry is None:

@@ -45,7 +45,8 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import cached_on, sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from . import _build
 from .spmv_sell import SellSpmv, _spmv_sell_cuda, spmv_sell_reference
@@ -434,8 +435,10 @@ _REAL: dict = {}
 
 def group_real(packed) -> torch.Tensor:
     """The pack's ``_group_real_build`` (a rowlane or superblock pack),
-    built once per pack."""
-    return cached_on(_REAL, packed, _group_real_build)
+    built once per pack and state of its values (an in-place write into
+    ``vals`` builds it anew)."""
+    return cached_on(_REAL, packed, _group_real_build,
+                     values_version(packed.vals))
 
 
 def _sector_mask_build(packed) -> torch.Tensor:
@@ -455,8 +458,10 @@ _MASKS: dict = {}
 
 
 def sector_mask(packed) -> torch.Tensor:
-    """The pack's ``_sector_mask_build``, built once per pack."""
-    return cached_on(_MASKS, packed, _sector_mask_build)
+    """The pack's ``_sector_mask_build``, built once per pack and state
+    of its values."""
+    return cached_on(_MASKS, packed, _sector_mask_build,
+                     values_version(packed.vals))
 
 
 def walk_ranges(tiles: np.ndarray, walked: np.ndarray, spw: int, T: int,
@@ -538,8 +543,9 @@ _WALKS: dict = {}
 def rowlane_walk(packed: SellRowLane, spw: int = 0):
     """The pack's walk ranges (``walk_ranges``) at ``spw`` slabs a warp (0:
     ``rowlane_default_spw`` over the rowlane kernel's resident warps),
-    built once per pack and ``spw``."""
-    walks = cached_on(_WALKS, packed, lambda _: {})
+    built once per pack, state of its values and ``spw``."""
+    walks = cached_on(_WALKS, packed, lambda _: {},
+                      values_version(packed.vals))
     if spw == 0:
         if 0 not in walks:
             walks[0] = rowlane_default_spw(
@@ -623,7 +629,8 @@ def _body_cuda(packed: SellRowLane, x: torch.Tensor, *, spw: int = 0,
                          f"device, not {x.device}")
     if rows == 0 or cols == 0:
         return torch.zeros(rows, dtype=torch.float32, device=x.device)
-    launches = cached_on(_LAUNCHES, packed, lambda _: {})
+    launches = cached_on(_LAUNCHES, packed, lambda _: {},
+                         values_version(packed.vals))
     key = (spw, mask, equal)
     entry = launches.get(key)
     if entry is None:

@@ -30,7 +30,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..formats.base import cached_on, sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from . import _build
 from .spmv_rowlane import (_pack_arrays, _pack_arrays_native, _put,
@@ -220,8 +221,10 @@ def _resident_warps(device: torch.device) -> int:
 
 def superblock_walk(packed: SellSuperblock, spw: int = 0):
     """The pack's ``_walk_build`` at ``spw`` slabs a warp (0:
-    ``default_spw``), built once per pack and ``spw``."""
-    walks = cached_on(_WALKS, packed, lambda _: {})
+    ``default_spw``), built once per pack, state of its values and
+    ``spw``."""
+    walks = cached_on(_WALKS, packed, lambda _: {},
+                      values_version(packed.vals))
     if spw == 0:
         if 0 not in walks:
             walks[0] = default_spw(packed)

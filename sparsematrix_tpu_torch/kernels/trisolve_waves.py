@@ -431,10 +431,12 @@ _CHAIN_ARGTYPES = (
     ctypes.c_void_p,  # a2
     ctypes.c_void_p,  # b fp32
     ctypes.c_void_p,  # x fp32 out
-    ctypes.c_void_p,  # sync (2,) int32, zeroed
     ctypes.c_int,  # S
     ctypes.c_int,  # K
     ctypes.c_int,  # bf16 planes
+    ctypes.c_int,  # cluster: 2, 4, 8 or 16 blocks
+    ctypes.c_int,  # ring stages (0: as many as fit, at most 4)
+    ctypes.c_int,  # parts: 0 the solve; 1, 2 ablations
     ctypes.c_void_p,  # stream
 )
 _BINV_ARGTYPES = (
@@ -468,9 +470,20 @@ def _check_planes(plan: TriWavesPlan, b: torch.Tensor, fn: str):
                          f"{plan.a1.dtype}")
 
 
-def _chain_cuda(plan: TriWavesPlan, b: torch.Tensor, rhs: int) -> torch.Tensor:
+# The cluster chain's blocks by default.  At chip_smoke.py's plans 16
+# beat 8 by 0-8 % at one and eight right-hand sides (its variant lines).
+CHAIN_CLUSTER = 16
+
+
+def _chain_cuda(plan: TriWavesPlan, b: torch.Tensor, rhs: int, *,
+                cluster: int = 0, stages: int = 0,
+                parts: int = 0) -> torch.Tensor:
     """One launch of the chain kernel on ``b`` (S*rhs*128,) fp32, rhs 1
-    or 8 (the tile-major pane)."""
+    or 8 (the tile-major pane).  ``cluster`` (blocks of the walking
+    cluster: 2, 4, 8 or 16; 0 ``CHAIN_CLUSTER``) and ``stages`` (the
+    ring's; 0 as many as fit, at most 4) are knobs for measurements only;
+    each gives x.  ``parts`` is an ablation (1: the hop alone, 2: the hop
+    and x's read): its result is not x."""
     fn_name = "trisolve_chain" if rhs == 1 else "trisolve_chain_mm"
     _check_planes(plan, b, fn_name)
     S, K = plan.S, plan.K
@@ -481,13 +494,12 @@ def _chain_cuda(plan: TriWavesPlan, b: torch.Tensor, rhs: int) -> torch.Tensor:
             or b.shape != (S * rhs * _LANES,) or not b.is_contiguous()):
         raise ValueError(f"{fn_name}: inconsistent plan planes or b")
     x = torch.empty_like(b)
-    sync = torch.zeros(2, dtype=torch.int32, device=b.device)
     fn = _build.load("trisolve_waves", _CHAIN_ARGTYPES, fn_name)
     with torch.cuda.device(b.device):
         err = fn(plan.a1.data_ptr(), plan.a2.data_ptr(), b.data_ptr(),
-                 x.data_ptr(), sync.data_ptr(), S, K,
-                 int(plan.a1.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
+                 x.data_ptr(), S, K, int(plan.a1.dtype == torch.bfloat16),
+                 cluster or CHAIN_CLUSTER, stages, parts,
+                 torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: launch failed with CUDA error {err}")
     _build.launch_counts[fn_name] += 1

@@ -810,6 +810,166 @@ def test_trisolve_chain_256_waves(dev):
                        tw.mm_forward_plain(plan, B))
 
 
+def _chain_plan(dev, n, K, lower=True, seed=0, **kw):
+    """A banded factor whose tile reach is K, and its chain plan."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    band = {1: 100, 2: 200, 3: 380}[K]
+    sp = triangular(n, 4, band, False, lower, seed=seed or n)
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(sp, device=dev),
+                                  lower=lower, **kw)
+    assert plan.mode == "chain" and plan.K == K
+    return sp, plan
+
+
+def _chain_rhs(dev, n, R, seed):
+    shape = (n,) if R == 1 else (n, R)
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(dev)
+
+
+def _chain_solve(plan, b):
+    """One solve (R = 1) or one pane (R = 8) through the public wrappers,
+    its launch counted, against the plain version."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    name = "trisolve_chain" if b.dim() == 1 else "trisolve_chain_mm"
+    apply_, plain = ((tw.trisolve_waves_apply, tw.waves_forward_plain)
+                     if b.dim() == 1 else
+                     (tw.trisolve_waves_apply_mm, tw.mm_forward_plain))
+    before = _build.launch_counts[name]
+    got = apply_(plan, b)
+    assert _build.launch_counts[name] == before + 1
+    assert_solve_close(got, plain(plan, b))
+    return got
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_trisolve_chain_cluster(dev, K, R):
+    """K = 1-3 at one and eight right-hand sides: one launch a solve or
+    a pane, against the plain version and the fp64 oracle, and the same
+    bits from a second solve (a fixed summation order, no atomics)."""
+    n = 3000 + 100 * K
+    sp, plan = _chain_plan(dev, n, K)
+    b = _chain_rhs(dev, n, R, K)
+    got = _chain_solve(plan, b)
+    assert torch.equal(got, _chain_solve(plan, b))
+    b64 = b.cpu().numpy()
+    want = (tri_oracle(sp, b64) if R == 1 else np.stack(
+        [tri_oracle(sp, b64[:, j]) for j in range(R)], 1))
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["S=8", "bf16", "reversed", "bf16-reversed"])
+def test_trisolve_chain_cluster_plans(dev, case):
+    """The smallest plan (one wave, S = 8 tiles, n not a multiple of 128),
+    a bf16 plan and an upper (reversed) plan, at R = 1 and R = 8."""
+    kw = dict(dtype=torch.bfloat16) if "bf16" in case else {}
+    n = 1000 if case == "S=8" else 2100
+    sp, plan = _chain_plan(dev, n, 2 if n > 1024 else 1,
+                           lower="reversed" not in case, **kw)
+    assert plan.reversed == ("reversed" in case)
+    if case == "S=8":
+        assert plan.S == 8
+    for R in (1, 8):
+        b = _chain_rhs(dev, n, R, R)
+        assert torch.equal(_chain_solve(plan, b), _chain_solve(plan, b))
+
+
+def test_trisolve_chain_band_2048_tiles(dev):
+    """A K = 3 band at n = 262144 (2048 tiles, chip_smoke.py's band): one
+    launch for 2048 dependent steps, R = 1 and R = 8."""
+    sp = triangular(262144, 3, 380, seed=5)
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(sp, device=dev))
+    assert plan.mode == "chain" and plan.K == 3 and plan.S == 2048
+    for R in (1, 8):
+        b = _chain_rhs(dev, 262144, R, 40 + R)
+        assert torch.equal(_chain_solve(plan, b), _chain_solve(plan, b))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("R", [1, 8])
+def test_trisolve_chain_knobs(dev, R, K):
+    """Every cluster size and every ring depth that fits, fp32 and bf16
+    planes: x as the plain version, twice the same bits.  The ablations
+    run (their result is not x)."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    n = 2600
+    for kw in ({}, dict(dtype=torch.bfloat16)):
+        _, plan = _chain_plan(dev, n, K, **kw)
+        S = plan.S
+        b = torch.randn(S * R * 128, device=dev)
+        want = tw._chain_plain(plan.a1, plan.a2, b.reshape(S, R, 128), S,
+                               K).reshape(-1)
+        for cluster in (2, 4, 8, 16):
+            for stages in (0, 1, 2, 3, 4):
+                try:
+                    got = tw._chain_cuda(plan, b, R, cluster=cluster,
+                                         stages=stages)
+                except RuntimeError:
+                    # a ring deeper than the block's shared memory
+                    assert stages > 1 and cluster <= 4
+                    continue
+                assert_solve_close(got, want)
+                assert torch.equal(got, tw._chain_cuda(
+                    plan, b, R, cluster=cluster, stages=stages))
+        for parts in (1, 2):
+            assert tw._chain_cuda(plan, b, R, parts=parts).shape == b.shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("R", [1, 8])
+def test_trisolve_chain_beside_a_busy_stream(dev, R):
+    """The chain's grid is its one cluster, so it waits on no block that
+    may not be resident: it finishes, with the same bits, while another
+    stream keeps the card's SMs busy with products."""
+    from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
+
+    _, plan = _chain_plan(dev, 3200, 2)
+    b = torch.randn(plan.S * R * 128, device=dev)
+    want = tw._chain_cuda(plan, b, R)
+    M = torch.randn(4096, 4096, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(8):
+            M = M @ M / 64.0
+    got = [tw._chain_cuda(plan, b, R) for _ in range(4)]
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("name", ["sector_mask", "superblock_walk",
+                                  "octet_walk"])
+def test_value_write_reaches_kernel(dev, name):
+    """Rows 7, 9 and 15 after an in-place write of a nonzero into an
+    all-zero sector (row 7's mask), a padding slab (row 9's group_real)
+    or an all-zero slab (row 15's walk), made after a first call built
+    those structures: y follows the write as the plain version does."""
+    from test_torch_caches import CASES
+
+    _, _, pack, cell, plain = CASES[name]
+    kern = {"sector_mask": spmv_sell_rowlane,
+            "superblock_walk": spmv_superblock,
+            "octet_walk": spmv_octet}[name]
+    P = pack(dev)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        P.shape[1]).astype(np.float32)).to(dev)
+    before = kern(P, x)
+    assert_kernel_close(before, plain(P, x))
+    g, row, lane = cell(P)
+    P.vals[g, row, lane] = 500.0
+    want = plain(P, x)
+    assert not torch.equal(want, before)
+    assert_kernel_close(kern(P, x), want)
+
+
 def _binv_card(dev, sp, **kw):
     """The binv kernel on ``sp`` (lower) against its plain version and
     the fp64 oracle, one launch."""

@@ -449,3 +449,30 @@ def test_binv_items_any_ready_order_matches_plain(name, order):
     assert torch.isfinite(x).all()
     np.testing.assert_allclose(x.numpy(), tw._binv_plain(plan, bp).numpy(),
                                **(BF16_TOL if "dtype" in kw else SOLVE_TOL))
+
+
+def test_chain_kernel_refuses_cpu_tensors():
+    """The chain kernel's wrapper takes CUDA tensors only, at one and
+    eight right-hand sides and whatever its knobs (the plain program
+    serves the CPU); its default cluster size is one the kernel takes."""
+    from sparsematrix_tpu_torch.formats import CSR
+
+    plan = tw.trisolve_waves_plan(CSR.from_scipy(
+        triangular(300, 2, band=100), device="cpu"))
+    b = torch.zeros(plan.S * 128)
+    for rhs in (1, 8):
+        for kw in ({}, dict(cluster=8, stages=2), dict(parts=1)):
+            with pytest.raises(ValueError, match="CUDA"):
+                tw._chain_cuda(plan, b, rhs, **kw)
+    assert tw.CHAIN_CLUSTER in (2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("groups", ["copy,octet", "chain,knobs", "cg"])
+def test_rows_chain_groups_need_a_card(monkeypatch, groups):
+    """``bench/rows.py``'s groups (rows 19 and 21's among them) print no
+    times without a CUDA card; an unknown group is refused."""
+    rows = importlib.import_module("sparsematrix_tpu_torch.bench.rows")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert rows.main(["--groups", groups]) == 2
+    with pytest.raises(SystemExit):
+        rows.main(["--groups", groups + ",nope"])
