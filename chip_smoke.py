@@ -37,7 +37,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    wave plans (chain K = 2 at 256², binv m = 8 at 512², a 256-wave chain
    of a K = 3 band at n = 262144, binv for ``bench_trisolve``'s scattered
    factor at n = 65536 and its upper twin, a bf16 plan) and the fused
-   plans; the chain, binv, 8-RHS chain (k = 8 and 12) and fused kernels
+   plans (also of the 1024² IC(0) L, n = 2^20, which ``trisolve()`` sends
+   to the fused engine); the chain, binv, 8-RHS chain (k = 8 and 12) and
+   fused kernels
    against their plain versions (1e-4 of the output scale) and a float64
    ``spsolve_triangular`` oracle.  Then slice 5: the SELL kernels on the
    JAX bench's ``csr_spmv`` sell row (n = 4096, 128 a row, tr = 64) and
@@ -79,7 +81,8 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    ``ilu_cg_xl`` (n = 65536: plain, ilu0-fix6, ilu0-waves, ic0-waves,
    ic0-fused) and ``ilu_cg_aniso`` (eps = 1000: plain, ic0-waves,
    ic0-waves-bf16), ``block_cg`` with k = 8 (plain and ic0-waves) and the
-   one-shot ``trisolve`` on the scattered factor, each held to the
+   one-shot ``trisolve`` on the scattered factor and on the 1024² IC(0)
+   factor (the fused route), each held to the
    bench's checks (tol reached, true residual within 10·tol·‖b‖,
    preconditioned CG in at most 0.6× plain's iterations); then slice 5:
    ``spmm(prepare_spmv(A), X)`` on the octet-mm and clustered CSRs (the
@@ -145,7 +148,7 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19 and 21, ``variant`` lines time
+   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19, 21, 18 and 14, ``variant`` lines time
    each knob setting and ablation beside the default in the same call: the
    Blocked-ELL split over blocks, staging alone, no zero-row skip, FMAs
    alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
@@ -161,9 +164,14 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    stages and blocks an SM at 128 and 256 MiB; the cluster chain's
    cluster size and ring stages, its hop alone and hop with x's read, at
    the 256² IC(0) L plan, each with µs a dependent step (an ablation's
-   result is not the product).  The trisolve timing lines give µs a
-   dependent step too.  The timing lines of rows 5, 9, 7 and 15 also give
-   each pack's slabs, cells, fill and two layout floors: every plane
+   result is not the product); the fused walk's lanes a row and
+   ablations at the 256² and 1024² IC(0) L plans, with µs a wave; the
+   k_tiles = 1 SpMM walk's steps alone and slabs a block at the XL k = 32
+   case.  The trisolve timing lines give µs a dependent step too (the
+   fused kernel's steps are its plan's segments, and its lines give its
+   waves and µs a wave beside them; the 1024² plan's plain time is one
+   call on the host's clock).  The timing lines of rows 5, 9, 7 and 15
+   also give each pack's slabs, cells, fill and two layout floors: every plane
    byte, and the bytes the kernel reads after its skips, at HBM's rate
    (row 15's with x and y); row 7 is also
    timed at the ``ilu_cg_xl`` fixpoint solve's two packs and at two small
@@ -257,6 +265,10 @@ PROBE_KERNELS = ("probe_rowlane_dma_only", "probe_rowlane_fixed_window",
                  "probe_rowlane_slice_no_gather", "probe_gather_single",
                  "probe_gather_dual", "probe_gather_pooled",
                  "probe_tile_gather", "probe_meta_scale")
+
+
+# row 18's case on the 1024² IC(0) factor (trisolve()'s fused route)
+FUSED_1024 = "fused ic0 L Poisson 1024^2"
 
 
 def emit(obj) -> None:
@@ -1029,6 +1041,17 @@ def main() -> int:
                                                     dtype=torch.bfloat16))
     P_kt1 = timed_pack("XL spmm walk k_tiles=1",
                        lambda: dgmod.pack_dualgather(A_xl, k_tiles=1))
+    P_kt1_bf = timed_pack("XL bf16 spmm walk k_tiles=1",
+                          lambda: dgmod.pack_dualgather(
+                              A_xl, k_tiles=1, dtype=torch.bfloat16))
+    # row 14's second X panel (k = 33 and 64: the window restaged)
+    X64_xl_np = np.random.default_rng(11).standard_normal(
+        (sp_xl.shape[1], 64)).astype(np.float32)
+    X33_xl_np = np.ascontiguousarray(X64_xl_np[:, :33])
+    Y64_xl_want = sp64_xl @ X64_xl_np.astype(np.float64)
+    xl_want = {id(x_xl_np): y_xl_want, id(X_xl_np): Y_xl_want,
+               id(X64_xl_np): Y64_xl_want,
+               id(X33_xl_np): Y64_xl_want[:, :33]}
     sp_4k, x_4k_np = random_matrix(4096, 128, seed=0)
     A_4k = CSR.from_scipy(sp_4k, device=dev)
     P_4k = timed_pack("n=4096 prepare_spmv (auto)", lambda: prepare_spmv(A_4k))
@@ -1051,6 +1074,12 @@ def main() -> int:
             ("spmv_dualgather", "n=1024 64/row auto", P_1k, sp_1k, x_1k_np),
             ("spmv_dualgather", "XL fp32 k_tiles=1", P_kt1, sp_xl, x_xl_np),
             ("spmm_dualgather", "XL k=32 k_tiles=1", P_kt1, sp_xl, X_xl_np),
+            ("spmm_dualgather", "XL k=33 k_tiles=1", P_kt1, sp_xl,
+             X33_xl_np),
+            ("spmm_dualgather", "XL k=64 k_tiles=1", P_kt1, sp_xl,
+             X64_xl_np),
+            ("spmm_dualgather", "XL bf16 k=32 k_tiles=1", P_kt1_bf, sp_xl,
+             X_xl_np),
             ("spmm_dualgather_sb", "XL k=32 auto", P_sb, sp_xl, X_xl_np)]:
         rhs = (x_xl if rhs_np is x_xl_np else X_xl if rhs_np is X_xl_np
                else torch.from_numpy(rhs_np).to(dev))
@@ -1063,7 +1092,7 @@ def main() -> int:
         torch.cuda.synchronize()
         bf16 = P.vals.dtype == torch.bfloat16
         if sp is sp_xl:
-            oracle = (y_xl_want if rhs_np is x_xl_np else Y_xl_want)
+            oracle = xl_want[id(rhs_np)]
             if bf16:
                 oracle = bf16_rounded(sp_xl) @ rhs_np.astype(np.float64)
         else:
@@ -1348,10 +1377,12 @@ def main() -> int:
               and bool(np.isfinite(got64).all()))
         steps = (plan.aux.shape[0] if kname == "trisolve_fused"
                  else plan.n_waves if kname == "trisolve_binv" else plan.S)
+        extra = ({"waves": tfmod.fused_walk(plan).n_waves}
+                 if kname == "trisolve_fused" else {})
         emit({"phase": "check", "kernel": kname, "case": case,
               "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
               "tol": 1e-4 * scale, "oracle_check": oracle_ok,
-              "dependent_steps": int(steps), "ok": ok})
+              "dependent_steps": int(steps), **extra, "ok": ok})
         if not ok:
             failures.append(f"check {kname} {case}")
         errs[(kname, case)] = err
@@ -1391,6 +1422,17 @@ def main() -> int:
               True, False)
     tri_check("trisolve_fused", "fused ic0 L^T Poisson 256^2 (upper)", F_icU,
               Lic_sp.T.tocsr(), False, False)
+    # the 1024² IC(0) factor: n = 2^20 > 524288, where trisolve() takes the
+    # fused engine (its main path below); row 18 on its plan (2047 waves)
+    t = time.perf_counter()
+    n_po3, po3_sp = poisson2d(1024 * 1024)
+    A_po3 = CSR.from_scipy(po3_sp.astype(np.float32).tocsr(), device=dev)
+    emit({"phase": "inputs", "matrix": "Poisson 1024^2", "n": n_po3,
+          "seconds": time.perf_counter() - t})
+    L_ic3 = s4_pack("ic0 Poisson 1024^2", lambda: ic0(A_po3))
+    Lic3_sp = L_ic3.to_scipy()
+    F_ic3 = s4_pack("fused ic0 L 1024^2", lambda: fp(L_ic3))
+    tri_check("trisolve_fused", FUSED_1024, F_ic3, Lic3_sp, True, False)
     del P_ic2U, P_band  # 2 GB of plans; the timings keep the rest
     tri_cases[bv] = [c for c in tri_cases[bv] if "512^2 (upper" not in c[0]]
     tri_cases[ch] = [c for c in tri_cases[ch] if "band" not in c[0]]
@@ -1982,6 +2024,21 @@ def main() -> int:
           "n=65536", "seconds": seconds, "launches": counts, "ok": ok})
     if not ok:
         failures.append("main path trisolve scattered")
+    # and on the 1024² IC(0) factor, the fused route (its plan and walk
+    # included in ``seconds``)
+    b3_np = np.random.default_rng(23).standard_normal(n_po3).astype(
+        np.float32)
+    x3, seconds, counts, launched = s4_run(
+        "trisolve 1024^2", lambda: trisolve(L_ic3, torch.from_numpy(
+            b3_np).to(dev)), (("trisolve_fused",),))
+    ok = launched and relative_check(x3.double().cpu().numpy(),
+                                     tri_oracle(Lic3_sp, b3_np, True, False))
+    emit({"phase": "main_path", "path": "trisolve(A, b) ic0 L Poisson "
+          "1024^2 (fused route)", "n": n_po3, "seconds": seconds,
+          "launches": counts, "ok": ok})
+    if not ok:
+        failures.append("main path trisolve 1024^2")
+    del x3
 
     # slice 5: spmm over octet packs, spmv/spmm over the spill-cap packs,
     # spmv over both SELL packs, spmm on a power-law CSR with an octet
@@ -2536,6 +2593,14 @@ def main() -> int:
     def dev_ms(fn):
         return timed_ms(fn, flush, spin_rate)
 
+    def wall_once_ms(fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
     def time_codebook(label, b_t, X):
         # the operations of the nonzero entries; each input read once and
         # the output written once
@@ -2745,6 +2810,35 @@ def main() -> int:
             ms = dev_ms(lambda kw=kw: twmod._chain_cuda(plan, bk, R, **kw))
             variant(kname, label, name, ms, row, us_a_step=1e3 * ms / plan.S)
 
+    def fused_variants(label, plan, b, row):
+        # row 18: the walk at other lanes a row, each with µs a wave and
+        # giving x; its ablations (not x): no store of x, the waits and
+        # barriers
+        waves = tfmod.fused_walk(plan).n_waves
+        bp = b if plan.perm is None else b[plan.perm.long()]
+        binv = torch.nn.functional.pad(plan.inv_diag * bp,
+                                       (0, plan.n_win * 1024 - plan.shape[0]))
+        knobs = ([(f"lanes={w}", dict(lanes=w)) for w in (2, 8)]
+                 + [("no store of x (ablation)", dict(ablate=1)),
+                    ("waits, refills and barriers alone (ablation)",
+                     dict(ablate=2)),
+                    ("barriers alone (ablation)", dict(ablate=3))])
+        for name, kw in knobs:
+            ms = dev_ms(lambda kw=kw: tfmod._fused_cuda(plan, binv.clone(),
+                                                        **kw))
+            variant("trisolve_fused", label, name, ms, row,
+                    us_a_wave=1e3 * ms / waves)
+
+    def kt1_variants(label, P, X, row):
+        # row 14: its steps alone (1: no X read under a zero value; 2: and
+        # X's window staged; 3, the default: and the planes streamed) and
+        # slabs a block; each gives the product
+        for name, kw in [("step=1", dict(step=1)), ("step=2", dict(step=2)),
+                         ("spb=64", dict(spb=64)), ("spb=256", dict(spb=256))]:
+            variant("spmm_dualgather", label, name,
+                    dev_ms(lambda kw=kw: _spmm_dualgather_cuda(P, X, **kw)),
+                    row)
+
     def codebook_variants(label, b_t, X, row):
         # row 1's split of k beside the default (``codebook_split``), the
         # partials of a split above 1 summed by a second kernel; each
@@ -2804,6 +2898,8 @@ def main() -> int:
     for kname, cases in dg_cases.items():
         for case, P, rhs, sp, vb in cases:
             dg_rows[(kname, case)] = time_dg(kname, case, P, rhs, sp, vb)
+    kt1_variants("XL k=32 k_tiles=1", P_kt1, X_xl,
+                 dg_rows[("spmm_dualgather", "XL k=32 k_tiles=1")])
 
     # slice 3: the pair-program SpMV kernels (and the bf16 / L=4 cases),
     # with cuSPARSE on the same matrix; the window permute one stage at a
@@ -3118,22 +3214,36 @@ def main() -> int:
         for case, kern, plain, plan, sp, lower, unit, rhs in cases:
             R = rhs.shape[1] if rhs.dim() == 2 else 1
             n_t = sp.shape[0]
+            # the fused kernel's plan steps are its segments; the walk
+            # syncs once a wave (``waves``, ``us_a_wave``)
             steps = (plan.aux.shape[0] if kname == "trisolve_fused"
                      else plan.S if plan.mode == "chain" else plan.n_waves)
             flops, nbytes = trisolve_work(kname, plan, n_t, R)
             bms, by = bound(flops, nbytes)
             row = {"kernel": kname, "case": case, "ms": dev_ms(kern),
-                   "plain_ms": dev_ms(plain),
+                   # the plain walk of 10 223 segments takes seconds: one
+                   # call on the host's clock
+                   "plain_ms": (wall_once_ms(plain) if case == FUSED_1024
+                                else dev_ms(plain)),
                    "library_ms": tri_library(sp, lower, unit, rhs),
                    "launches": main_launches[kname], "bound_ms": bms,
                    "bound_by": by, "flops": flops, "bytes": nbytes,
                    "dependent_steps": int(steps)}
             row["us_a_step"] = 1e3 * row["ms"] / int(steps)
+            if kname == "trisolve_fused":
+                walk = tfmod.fused_walk(plan)
+                row.update(waves=walk.n_waves,
+                           us_a_wave=1e3 * row["ms"] / walk.n_waves,
+                           chunks=walk.n_chunks, rows=walk.rows,
+                           entries=walk.entries,
+                           entries_from_cache=walk.cached, lanes=walk.lanes)
             emit({"phase": "timing", **row})
             s4_rows[(kname, case)] = row
             if case in ("ic0 L Poisson 256^2 (K=2)",
                         "ic0 L Poisson 256^2 k=8"):
                 chain_variants(kname, case, plan, R, row)
+            if case in ("fused ic0 L Poisson 256^2", FUSED_1024):
+                fused_variants(case, plan, rhs, row)
     emit({"phase": "library_note", "call": "torch.triangular_solve(B, "
           "A_csr)", "absent_because": lib_note})
 

@@ -29,6 +29,21 @@ tree sees the same ones.  The groups (all by default):
 - ``cg``: an iteration of ``ilu_cg_xl`` and ``block_cg_xl`` with IC(0)
   waves (device and wall ms, of a tol = 0 run of 25 iterations) and the
   preconditioner's apply alone;
+- ``fused``: row 18 through ``trisolve_fused_apply`` (and the wrapper's
+  launch alone) on the IC(0) L and L^T of the 256² Poisson and its L at
+  1024² (the plan ``trisolve()`` takes there), with µs a wave (the waves
+  of a level-sorted Poisson plan are its levels less the first); both
+  triangular solves of ``splu_solve``'s fused engine on the convection
+  system at n = 16384, and ``splu_solve`` itself; an iteration of
+  ``ilu_cg_xl`` with IC(0) fused plans (device and wall ms, of a tol = 0
+  run of 25 iterations); where the tree's walk has knobs, its cluster
+  sizes, lanes a row and ablations at the Poisson plans;
+- ``walk``: rows 14 and 13 at k = 32 on the XL CSR (its k_tiles = 1
+  pack and ``prepare_spmv``'s), beside cuSPARSE; row 14 at k = 1, 8, 33
+  and 64 and with bf16 values there, on the ``spmm_xl`` matrices of 64
+  and 2 a row, and on ``block_cg_xl``'s Poisson system at k = 8; where
+  the tree's walk has steps, each step alone in every case and slabs a
+  block at the XL and block CG cases;
 - ``bench``: the bench suite's ``calibrate``, ``spmv_clustered`` and
   ``spgemm_xl`` groups (``--no-bench`` leaves them out).
 
@@ -47,7 +62,7 @@ import sys
 from pathlib import Path
 
 MIB128 = 128 * 1024 * 1024 // 4  # fp32 elements of the 128 MiB stream
-GROUPS = ("copy", "octet", "chain", "knobs", "cg", "bench")
+GROUPS = ("copy", "octet", "chain", "knobs", "cg", "fused", "walk", "bench")
 
 
 def main(argv=None) -> int:
@@ -275,6 +290,155 @@ def _cg(dev, emit, ms, wall_ms, **_):
           "precond_device_ms": ms(lambda: Mb(B))})
 
 
+def _fused(dev, emit, ms, wall_ms, **_):
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from sparsematrix_tpu_torch.formats import CSR
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+    from sparsematrix_tpu_torch.ops import (ic0, ic0_fused_plans, ic_apply,
+                                            prepare_spmv, splu_plans,
+                                            splu_solve)
+    from sparsematrix_tpu_torch.solvers import cg
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    new = "lanes" in inspect.signature(tf._fused_cuda).parameters
+
+    def launch_alone(plan, b, **knobs):
+        # the wrapper's launch on a padded b in the plan's order
+        bp = b if plan.perm is None else b[plan.perm.long()]
+        binv = torch.nn.functional.pad(plan.inv_diag * bp,
+                                       (0, plan.n_win * 1024 - plan.shape[0]))
+        if new:  # solves in place: a fresh copy a call
+            return lambda: tf._fused_cuda(plan, binv.clone(), **knobs)
+        return lambda: tf._fused_cuda(plan, binv)
+
+    def row(case, plan, waves):
+        n = plan.shape[0]
+        b = torch.randn(n, device=dev)
+        t = ms(lambda: tf.trisolve_fused_apply(plan, b))
+        emit({"row": 18, "case": case, "ms": t,
+              "kernel_ms": ms(launch_alone(plan, b)),
+              "segments": int(plan.aux.shape[0]), "waves": waves,
+              "us_a_wave": 1e3 * t / waves})
+        if not new:
+            return
+        # the walk's knobs and ablations (an ablation's x is not the solve)
+        for kw in [dict(lanes=w) for w in (2, 8)] + [
+                dict(ablate=a) for a in (1, 2, 3, 4)]:
+            t = ms(launch_alone(plan, b, **kw))
+            emit({"row": 18, "case": case, "knobs": kw, "kernel_ms": t,
+                  "us_a_wave": 1e3 * t / waves})
+
+    for side in (256, 1024):
+        _, sp = poisson2d(side * side)
+        A = CSR.from_scipy(sp.astype(np.float32).tocsr(), device=dev)
+        L = ic0(A)
+        plans = [(f"ic0 L Poisson {side}^2", tf.trisolve_fused_plan(L))]
+        if side == 256:
+            plans.append((f"ic0 L^T Poisson {side}^2 (upper)",
+                          tf.trisolve_fused_plan(CSR.from_scipy(
+                              L.to_scipy().T.tocsr(), device=dev),
+                              lower=False)))
+        for case, plan in plans:
+            row(case, plan, plan.n_levels - 1)
+        del plans, L, A
+
+    n_cv, sp_cv = cs.convection_system(128)
+    solver = splu_plans(CSR.from_scipy(sp_cv, device=dev), engine="fused")
+    for name, plan in (("L", solver.l_plan), ("U", solver.u_plan)):
+        b = torch.randn(n_cv, device=dev)
+        emit({"row": 18, "case": f"splu fused convection n={n_cv} {name}",
+              "ms": ms(lambda: tf.trisolve_fused_apply(plan, b)),
+              "segments": int(plan.aux.shape[0]),
+              "levels": plan.n_levels})
+    b = torch.randn(n_cv, device=dev)
+    emit({"e2e": f"splu_solve fused convection n={n_cv}",
+          "device_ms": ms(lambda: splu_solve(solver, b))})
+
+    n, sp = poisson2d(65536, 1.0)
+    A = CSR.from_scipy(sp.astype(np.float32).tocsr(), device=dev)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(n).astype(
+        np.float32)).to(dev)
+    Ap = prepare_spmv(A)
+    plans = ic0_fused_plans(A)
+    M = lambda r: ic_apply(plans, r)  # noqa: E731
+    run = lambda: cg(Ap, b, tol=0.0, maxiter=25, M=M)  # noqa: E731
+    emit({"e2e": "cg ilu_cg_xl/ic0-fused", "per_iter_device_ms":
+          ms(run) / 25, "per_iter_wall_ms": wall_ms(run) / 25,
+          "precond_device_ms": ms(lambda: M(b))})
+
+
+def _walk(dev, emit, ms, **_):
+    import chip_smoke as cs
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+    from sparsematrix_tpu_torch.formats import CSR
+    from sparsematrix_tpu_torch.kernels import pack_dualgather
+    from sparsematrix_tpu_torch.ops import prepare_spmv
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    # the module: the package exports its function under the same name
+    smd = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+    kern = smd._spmm_dualgather_cuda
+    steps = "step" in inspect.signature(kern).parameters
+
+    def lib(sp):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(sp.indptr.astype(np.int64)),
+            torch.from_numpy(sp.indices.astype(np.int64)),
+            torch.from_numpy(sp.data.astype(np.float32)),
+            size=sp.shape).to(dev)
+
+    def row14(case, P, X, S=None, spbs=()):
+        r = {"row": 14, "case": case, "ms": ms(lambda: kern(P, X))}
+        if S is not None:
+            r["library_ms"] = ms(lambda: S @ X)
+        if steps:
+            r["steps_ms"] = [ms(lambda st=st: kern(P, X, step=st))
+                             for st in smd.STEPS]
+            r["spb_ms"] = {sp: ms(lambda sp=sp: kern(P, X, spb=sp))
+                           for sp in spbs}
+        emit(r)
+
+    sp_xl, _ = cs.xl_matrix()
+    A = CSR.from_scipy(sp_xl, device=dev)
+    S = lib(sp_xl)
+    X = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (sp_xl.shape[1], 32)).astype(np.float32)).to(dev)
+    P = pack_dualgather(A, k_tiles=1)
+    P_sb = prepare_spmv(A)
+    row14("XL k=32 k_tiles=1", P, X, S, spbs=(16, 32, 64, 128, 256))
+    emit({"row": 13, "case": "XL k=32 auto", "ms": ms(lambda: kern(P_sb, X))})
+    for k in (1, 8, 33, 64):
+        Xk = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (sp_xl.shape[1], k)).astype(np.float32)).to(dev)
+        row14(f"XL k={k} k_tiles=1", P, Xk, S)
+    del P_sb
+    P16 = pack_dualgather(A, k_tiles=1, dtype=torch.bfloat16)
+    row14("XL k=32 k_tiles=1 bf16", P16, X)
+    del P16, P, S, A
+
+    n = 32768
+    sp64 = sps.random(n, n, density=64 / n, random_state=5, format="csr",
+                      dtype=np.float32)
+    sp64.data = np.random.default_rng(6).uniform(-1, 1, sp64.nnz).astype(
+        np.float32)
+    sp2, X2 = cs.octet_mm_matrix()
+    for name, sp in (("spmm_xl walk-kt1 64/row k=32", sp64),
+                     ("spmm_xl walk-kt1 2/row k=32", sp2)):
+        Pw = pack_dualgather(CSR.from_scipy(sp, device=dev), k_tiles=1)
+        row14(name, Pw, torch.from_numpy(X2).to(dev), lib(sp))
+
+    npo, po = poisson2d(65536)
+    Pp = pack_dualgather(CSR.from_scipy(po.astype(np.float32).tocsr(),
+                                        device=dev), k_tiles=1)
+    row14("block_cg_xl Poisson 256^2 k=8", Pp,
+          torch.randn((npo, 8), device=dev), spbs=(4, 8, 16, 32))
+
+
 def _bench(dev, emit, **_):
     from sparsematrix_tpu_torch.bench import cli, suite
 
@@ -290,7 +454,7 @@ def _bench(dev, emit, **_):
 
 
 _RUNS = {"copy": _copy, "octet": _octet, "chain": _chain, "knobs": _knobs,
-         "cg": _cg, "bench": _bench}
+         "cg": _cg, "fused": _fused, "walk": _walk, "bench": _bench}
 
 
 if __name__ == "__main__":

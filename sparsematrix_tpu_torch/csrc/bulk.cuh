@@ -1,6 +1,7 @@
 // Hopper's bulk asynchronous copies (the TMA's 1-D form, no tensor map)
 // and the shared-memory barriers that count their bytes, shared by the
-// octet SpMV (spmv_octet.cu) and the stream copy (stream_copy.cu).
+// octet SpMV (spmv_octet.cu), the stream copy (stream_copy.cu) and the
+// triangular solves (trisolve_waves.cu, trisolve_fused.cu).
 //
 // A copy moves a contiguous run of bytes between global and shared
 // memory; both addresses and the size are multiples of 16.  A global to
@@ -37,6 +38,13 @@ __device__ __forceinline__ void expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// One arrival on `bar`, no bytes.
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 

@@ -1,7 +1,6 @@
-// Shared pieces of the triangular-solve kernels (trisolve_waves.cu,
-// trisolve_fused.cu): the in-order walk of a sequential program by
-// blocks that draw their step from a ticket, the plane loads, and the
-// slab gather.
+// Shared pieces of the triangular-solve kernels of trisolve_waves.cu: the
+// in-order walk of a sequential program by blocks that draw their step
+// from a ticket, the plane loads, and the slab gather.
 //
 // The TPU kernels rely on the TPU running grid steps in order: a later
 // step reads x that an earlier step committed.  CUDA runs blocks in no
@@ -50,17 +49,6 @@ __device__ __forceinline__ int draw_ticket(int* counter) {
   if (threadIdx.x == 0) t = atomicAdd(counter, 1);
   __syncthreads();
   return t;
-}
-
-// Waits until *flag >= target; afterwards every thread of the block sees
-// the writes that the blocks which raised the flag made before.
-__device__ __forceinline__ void wait_geq(const int* flag, int target) {
-  if (threadIdx.x == 0) {
-    while (ld_acquire(flag) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Adds v to *flag once every thread's writes are visible device-wide.

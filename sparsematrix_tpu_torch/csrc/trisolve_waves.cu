@@ -100,6 +100,7 @@ namespace {
 using ts::kLanes;
 using ts::kQuarters;
 using ts::kThreads;
+using bulk::arrive;
 constexpr int kJ = kLanes / kQuarters;  // rows of a tile per quarter
 
 // ---------------------------------------------------------------------------
@@ -187,12 +188,6 @@ __device__ __forceinline__ void wait_cluster(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   } while (!done);
-}
-
-__device__ __forceinline__ void arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   bulk::smem_addr(bar))
-               : "memory");
 }
 
 // The box at (column c0, row c1) of a 2-D tensor map, reported to `bar`.

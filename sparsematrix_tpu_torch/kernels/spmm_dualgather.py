@@ -9,6 +9,16 @@ tail (``spill_cap``) is then a second launch, ``csrc/spmv_pooled.cu`` on
 all k columns at once (the JAX package runs its tail kernel once a
 column; the sum is the same).
 
+A k_tiles=1 pack runs its own kernel (row 14, ``spmm_dualgather_walk``
+in the same source): it walks a list of the pack's slabs that hold a
+value (``kt1_walk``, built once a pack and state of its values), window
+by window, with the window's rows of X staged in shared memory, the slab
+planes streamed ahead by ``cp.async``, and reads no X row under a zero
+value; a superblock pack keeps the first kernel (row 13).  One
+deliberate difference: an inf or NaN of X under a zero value (a padding
+slot) gives 0 on the card, where the plain version gives NaN (as rows 7,
+9 and 15 do).
+
 ``spmm_dualgather(packed, X)`` runs ``spmm_dualgather_reference`` when all
 its inputs lie on the CPU, and otherwise launches the kernels or raises.
 It is differentiable in X and in the values, with the JAX wrapper's
@@ -19,9 +29,15 @@ tail out, both take the tail's entries too.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
+import numpy as np
 import torch
 
-from .spmv_dualgather import (_W, DualGather, _check_pack, _dvals,
+from ..formats.base import cached_on, values_version
+from . import _build
+from .spmv_dualgather import (_LANES, _W, DualGather, _check_pack, _dvals,
                               _slot_row_col, _slot_row_col_pooled,
                               _tail_vals, _walk_plain, launch_pooled,
                               launch_walk)
@@ -49,7 +65,181 @@ def spmm_dualgather_reference(packed: DualGather,
     return _walk_plain(packed, X)
 
 
-def _spmm_dualgather_cuda(packed: DualGather, X: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# row 14: the k_tiles=1 walk (csrc/spmm_dualgather.cu spmm_dualgather_walk)
+# ---------------------------------------------------------------------------
+
+# the walk's steps, each a kernel variant measured on its own: 1 reads no
+# X row under a zero value (slabs in pack order, X gathered from L2); 2
+# also stages X's window in shared memory (slabs window by window, four
+# teams of four warps a block); 3 also streams the slab planes ahead
+STEPS = (1, 2, 3)
+KT1_STEP = 3  # the default
+_TEAMS = {1: 1, 2: 4, 3: 4}  # teams of four warps a block
+_SMS = 132  # the H100's SMs: the cut of a pack on the CPU
+
+
+def _sms(dev: torch.device) -> int:
+    """The SMs that the walk is cut for: the card's own count."""
+    if dev.type != "cuda":
+        return _SMS
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class Kt1Walk:
+    """A k_tiles=1 pack's walk: ``items`` (n_items, 4) int32, (slab, tile,
+    window, 0) of every slab that holds a nonzero value, each slab once;
+    ``part_ptr`` (n_blocks · teams + 1,) int32, the items of block b's team
+    q at part b·teams + q.  In pack order (step 1) a block is one team
+    walking about 16 slabs; window by window (steps 2-3) all of a block's
+    slabs read one window, which it stages, and there is about one block
+    an SM (the card holds one at a time: 512 threads of ~100 registers),
+    shared among the windows by their slabs, so that no second round of
+    blocks runs a few stragglers."""
+
+    items: torch.Tensor
+    part_ptr: torch.Tensor
+    n_blocks: int
+    teams: int
+
+
+def _real_slabs(packed: DualGather):
+    """(slab, tile, window) int64 of the slabs holding a nonzero value, in
+    pack order."""
+    n = packed.n_slabs
+    s = np.flatnonzero((packed.vals.reshape(n, -1) != 0).any(1).cpu().numpy())
+    tile = packed.group_tile.cpu().numpy().astype(np.int64)[s // packed.group]
+    win = packed.slab_win.reshape(-1).cpu().numpy().astype(np.int64)[s]
+    return s, tile, win
+
+
+def _share(wlen: np.ndarray, total: int) -> np.ndarray:
+    """Blocks of each window: about ``total`` in all, at least one and at
+    most its slabs a window, in proportion to the windows' slabs (the
+    largest remainders take the rest)."""
+    exact = wlen * (max(total, len(wlen)) / wlen.sum())
+    per = np.maximum(np.floor(exact).astype(np.int64), 1)
+    left = max(total, len(wlen)) - int(per.sum())
+    if left > 0:
+        per[np.argsort(per - exact, kind="stable")[:left]] += 1
+    return np.minimum(per, wlen)
+
+
+def _kt1_walk_build(packed: DualGather, step: int, spb: int = 0) -> Kt1Walk:
+    s, tile, win = _real_slabs(packed)
+    teams = _TEAMS[step]
+    sms = _sms(packed.vals.device)
+    n = len(s)
+    if n == 0:
+        block_of = s
+    elif step == 1:
+        # contiguous slabs a block, as the first design cut them
+        spb = spb or int(np.clip(-(-n // (8 * sms)), 1, 16))
+        block_of = np.arange(n) // spb
+    else:
+        order = np.lexsort((s, tile, win))
+        s, tile, win = s[order], tile[order], win[order]
+        # blocks within one window each: about spb slabs a block, or one
+        # block an SM shared among the windows
+        wstart = np.r_[0, np.flatnonzero(np.diff(win)) + 1]
+        wlen = np.diff(np.r_[wstart, n])
+        wid = np.repeat(np.arange(len(wlen)), wlen)
+        first = wstart[wid]
+        per = -(-wlen // spb) if spb else _share(wlen, sms)
+        sz = -(-wlen // per)
+        block_of = (np.r_[0, np.cumsum(per)][wid]
+                    + (np.arange(n) - first) // sz[wid])
+    n_blocks = int(block_of[-1]) + 1 if n else 0
+    bstart = np.searchsorted(block_of, np.arange(n_blocks + 1))
+    # each block's slabs cut into `teams` parts of equal counts
+    q = np.arange(teams + 1)
+    cnt = np.diff(bstart)
+    part = (bstart[:-1, None] + (cnt[:, None] * q[None, :]) // teams)
+    part_ptr = np.r_[part[:, :-1].reshape(-1), n]
+    items = np.stack([s, tile, win, np.zeros_like(s)], 1).astype(np.int32)
+    dev = packed.vals.device
+    return Kt1Walk(items=torch.from_numpy(items).to(dev),
+                   part_ptr=torch.from_numpy(part_ptr.astype(np.int32)).to(dev),
+                   n_blocks=n_blocks, teams=teams)
+
+
+_WALKS: dict = {}
+
+
+def kt1_walk(packed: DualGather, step: int = KT1_STEP,
+             spb: int = 0) -> Kt1Walk:
+    """``_kt1_walk_build`` of the pack at ``step`` and ``spb`` (slabs a
+    block, 0: the default), built once a pack and state of its values (an
+    in-place write into ``vals`` builds it anew)."""
+    walks = cached_on(_WALKS, packed, lambda _: {},
+                      values_version(packed.vals))
+    key = (step, spb)
+    if key not in walks:
+        walks[key] = _kt1_walk_build(packed, step, spb)
+    return walks[key]
+
+
+_WALK_ARGTYPES = (
+    ctypes.c_void_p,  # idxA int8
+    ctypes.c_void_p,  # idxB int8
+    ctypes.c_void_p,  # vals fp32 or bf16
+    ctypes.c_void_p,  # items (n_items, 4) int32
+    ctypes.c_void_p,  # part_ptr int32
+    ctypes.c_int,  # blocks
+    ctypes.c_void_p,  # X (cols, k) fp32
+    ctypes.c_void_p,  # Y (rows, k) fp32, zeroed
+    ctypes.c_int,  # rows
+    ctypes.c_int,  # cols
+    ctypes.c_int,  # k
+    ctypes.c_int,  # step
+    ctypes.c_int,  # bf16 values
+    ctypes.c_void_p,  # stream
+)
+
+
+def _launch_kt1(packed: DualGather, X: torch.Tensor, Y: torch.Tensor,
+                step: int, spb: int) -> None:
+    """Row 14's walk: ``Y += A @ X`` (Y zeroed by the caller)."""
+    n_groups, group = packed.idxB.shape[0], packed.group
+    planes = (packed.idxA, packed.idxB, packed.vals)
+    if not all(t.device == X.device and t.is_contiguous()
+               and t.data_ptr() % 16 == 0 for t in planes + (X, Y)):
+        raise ValueError("spmm_dualgather: the pack, X and Y must be "
+                         "contiguous and 16-byte aligned on one CUDA device")
+    if (packed.idxA.dtype != torch.int8 or packed.idxB.dtype != torch.int8
+            or packed.nibble or packed.two_win
+            or packed.idxB.shape != (n_groups, group * 8, _LANES)
+            or packed.vals.shape != packed.idxB.shape
+            or packed.idxA.shape != packed.idxB.shape):
+        raise ValueError("spmm_dualgather: inconsistent k_tiles=1 pack")
+    if step not in STEPS:
+        raise ValueError(f"spmm_dualgather: step must be one of {STEPS}")
+    rows, cols = packed.shape
+    k = X.shape[1]
+    walk = kt1_walk(packed, step, spb)
+    if rows == 0 or cols == 0 or k == 0 or walk.n_blocks == 0:
+        return
+    fn = _build.load("spmm_dualgather", _WALK_ARGTYPES,
+                     "spmm_dualgather_walk")
+    with torch.cuda.device(X.device):
+        err = fn(packed.idxA.data_ptr(), packed.idxB.data_ptr(),
+                 packed.vals.data_ptr(), walk.items.data_ptr(),
+                 walk.part_ptr.data_ptr(), walk.n_blocks, X.data_ptr(),
+                 Y.data_ptr(), rows, cols, k, step,
+                 int(packed.vals.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_dualgather: launch failed with CUDA error "
+                           f"{err}")
+    _build.launch_counts["spmm_dualgather"] += 1
+
+
+def _spmm_dualgather_cuda(packed: DualGather, X: torch.Tensor, *,
+                          step: int = 0, spb: int = 0) -> torch.Tensor:
+    """The kernels on the card.  ``step`` (1-3, 0 the default
+    ``KT1_STEP``) and ``spb`` (slabs a block, 0 the walk's choice) pick
+    row 14's variant, for measurements only."""
     _check(packed, X)
     if not X.is_cuda:
         raise ValueError("spmm_dualgather: X must lie on the pack's CUDA "
@@ -57,7 +247,10 @@ def _spmm_dualgather_cuda(packed: DualGather, X: torch.Tensor) -> torch.Tensor:
     Y = torch.zeros((packed.shape[0], X.shape[1]), dtype=torch.float32,
                     device=X.device)
     X = X.contiguous()
-    launch_walk("spmm_dualgather", packed, X, Y)
+    if packed.k_tiles == 1:
+        _launch_kt1(packed, X, Y, step or KT1_STEP, spb)
+    else:
+        launch_walk("spmm_dualgather", packed, X, Y)
     if packed.tail is not None:
         launch_pooled(packed.tail, X, Y)
     return Y

@@ -14,7 +14,12 @@ every plane comes out ``np.array_equal`` to the JAX plan; with
 
 ``trisolve_fused_apply`` runs the plain version (``_fused_plain``, the
 segments walked in order in torch) when its inputs lie on the CPU, and
-otherwise launches the kernel or raises.  It is differentiable in ``b``
+otherwise launches the kernel or raises.  The kernel walks the plan's
+waves (``segment_waves``: a segment runs one wave after the segments whose
+commits its nonzero slots read) over a list of the committed rows and
+their nonzero slots (``fused_walk``), both built once a plan and keyed on
+the state of its values and gates; it syncs once a wave instead of once a
+segment.  It is differentiable in ``b``
 and ``plan.vals`` when the plan was built with ``with_transpose=True``.
 """
 from __future__ import annotations
@@ -27,7 +32,8 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from . import _build
 
@@ -245,35 +251,298 @@ def trisolve_fused_plan(A: CSR, lower: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# the plain version and the kernel wrapper
+# the plain version, the card's wave walk and the kernel wrapper
 # ---------------------------------------------------------------------------
 
+_SEG_PTRS: dict = {}
+_WAVES: dict = {}
+_WALKS: dict = {}
+
+
 def _seg_ptr(plan: TriFusedPlan) -> torch.Tensor:
-    """(n_segs+1,) int32: the first group of each segment."""
+    """(n_segs+1,) int32: the first group of each segment (built once a
+    plan)."""
+    def build(p):
+        n_segs = p.aux.shape[0]
+        return torch.searchsorted(
+            p.seg_id, torch.arange(n_segs + 1, dtype=torch.int32,
+                                   device=p.seg_id.device), out_int32=True)
+    return cached_on(_SEG_PTRS, plan, build)
+
+
+def _plan_version(plan: TriFusedPlan):
+    # the waves and the walk read which slots hold a value and the gates
+    return values_version(plan.vals, plan.aux)
+
+
+def _slots(plan: TriFusedPlan):
+    """The slots that hold a nonzero value, in program order (slab,
+    sublane, lane): their segment, lane, column (int64) and value (fp32),
+    as numpy arrays."""
+    nz = (plan.vals != 0).nonzero().cpu().numpy()  # (g, gh, l), ordered
+    g, gh, lane = nz[:, 0], nz[:, 1], nz[:, 2]
+    slab = g * plan.group + gh // 8
+    sidx = plan.s_idx.cpu().numpy()[g, gh, lane].astype(np.int64) & 127
+    win = plan.slab_win.cpu().numpy().astype(np.int64)[slab]
+    col = win * _W + (gh % 8) * _LANES + sidx
+    seg = plan.seg_id.cpu().numpy().astype(np.int64)[g]
+    val = plan.vals.float().cpu().numpy()[g, gh, lane]
+    return seg, lane.astype(np.int64), col, val
+
+
+def _waves_build(plan: TriFusedPlan):
+    """(seg_wave, n_waves) from the plan's planes alone.  Wave 0 is x's
+    initial value (the rows no segment commits); a segment's wave is one
+    more than the largest wave among the segments that commit a (tile,
+    lane) its nonzero slots gather, counting only segments earlier in
+    program order.  The committing segment of (tile t, lane l) is the one
+    whose ``group_tile`` is t and whose gate ``aux[seg, 0, l]`` is
+    nonzero.  A slot of value 0 (padding) adds no dependency."""
     n_segs = plan.aux.shape[0]
-    return torch.searchsorted(
-        plan.seg_id,
-        torch.arange(n_segs + 1, dtype=torch.int32, device=plan.seg_id.device),
-        out_int32=True)
+    if n_segs == 0:
+        return np.zeros(0, np.int64), 1
+    gate = (plan.aux[:, 0] != 0).cpu().numpy()
+    ptr = _seg_ptr(plan).cpu().numpy().astype(np.int64)
+    seg_tile = plan.group_tile.cpu().numpy().astype(np.int64)[ptr[:-1]]
+    commit = np.full(plan.n_win * _W, -1, np.int64)
+    gs, gl = np.nonzero(gate)
+    np.maximum.at(commit, seg_tile[gs] * _LANES + gl, gs)
+    seg, _, col, _ = _slots(plan)
+    dep = commit[col]
+    keep = (dep >= 0) & (dep < seg)
+    edge = np.unique(seg[keep] * n_segs + dep[keep])
+    eseg, edep = edge // n_segs, (edge % n_segs).tolist()
+    eptr = np.searchsorted(eseg, np.arange(n_segs + 1)).tolist()
+    wave = [0] * n_segs
+    for s in range(n_segs):  # deps point to earlier segments only
+        w = 0
+        for d in edep[eptr[s]:eptr[s + 1]]:
+            if wave[d] > w:
+                w = wave[d]
+        wave[s] = w + 1
+    seg_wave = np.asarray(wave, np.int64)
+    return seg_wave, int(seg_wave.max()) + 1
+
+
+def segment_waves(plan: TriFusedPlan):
+    """``_waves_build`` of the plan, built once a plan and state of its
+    values and gates (an in-place write builds it anew)."""
+    return cached_on(_WAVES, plan, _waves_build, _plan_version(plan))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedWalk:
+    """The card's walk of a fused plan (``csrc/trisolve_fused.cu``): the
+    committed rows in wave order, cut into chunks that each hold rows of
+    one wave only.  A chunk is a run of 32-bit words: a header (rows,
+    entries, and the first row and length of the run of x that holds its
+    rows, ``span``), a record a row (its index in x, its first and end
+    entry within the chunk, gate·inv_diag as fp32 bits), then an entry
+    (column, fp32 value bits) a nonzero slot of the row, in the plan's
+    slot order; each chunk starts on 16 bytes.  Only slots of nonzero
+    value whose lane the segment gates are listed: a gated lane's commit
+    ``x = binv − Σ v·x[col] · ginv`` is all that the plan's commit changes
+    (an ungated lane keeps its value).  An entry's column has its top bit
+    set where the block's cache of x in shared memory (``cache`` rows,
+    row r at slot r mod ``cache``, written at every commit) still holds
+    it when the entry is read: the row was committed in an earlier wave
+    and no other row of its slot is committed from then up to and with
+    the reader's wave.  The kernel copies that run of binv with the chunk
+    (a multiple of 4 rows from a multiple of 4; a level-sorted plan's rows
+    of a wave are contiguous); a chunk whose rows are spread wider has
+    none (first row -1) and reads each row's binv from x."""
+
+    blob: torch.Tensor  # (words,) int32, on the plan's device
+    chunk_off: torch.Tensor  # (n_chunks + 1,) int64 byte offsets
+    span: torch.Tensor  # (n_chunks, 2) int32: the run's first row, rows
+    n_chunks: int
+    n_waves: int  # waves walked, wave 0 (the initial x) not counted
+    stage_bytes: int  # the largest chunk
+    span_bytes: int  # the largest run of binv
+    lanes: int  # threads that share a row (1, 2, 4, ..., 32)
+    rows: int
+    entries: int
+    cache: int  # rows of the x cache the column flags assume
+    cached: int  # entries read from the cache
+
+
+_CHUNK_BYTES = 32 << 10  # a wave is cut into chunks of at most this size
+_X_CACHE = 8192  # rows of x the walk's block keeps in shared memory
+_CACHED = np.int64(1) << 31  # a column's flag: read from the cache
+
+
+def _cache_flags(crow, cwave, n, cache):
+    """For the committed rows ``crow`` (committed in waves ``cwave``):
+    (wave_of_row, the first wave that overwrites the row's cache slot or
+    takes it in its own wave), each (n,); 0 and -1 for a row that no
+    segment commits."""
+    wave_of = np.zeros(n, np.int64)
+    wave_of[crow] = cwave
+    slot = crow % cache
+    order = np.lexsort((cwave, slot))
+    ss, ww = slot[order], cwave[order]
+    same = ss[1:] == ss[:-1]
+    big = np.iinfo(np.int64).max
+    nxt = np.full(len(order), big, np.int64)
+    nxt[:-1] = np.where(same, ww[1:], big)
+    # two rows of one slot committed in one wave: neither stays readable
+    clash = np.r_[False, same & (ww[1:] == ww[:-1])]
+    nxt = np.where(clash, ww, nxt)
+    nxt_of = np.full(n, -1, np.int64)
+    nxt_of[crow[order]] = nxt
+    return wave_of, nxt_of
+
+
+def _walk_build(plan: TriFusedPlan) -> FusedWalk:
+    dev = plan.vals.device
+    n_segs = plan.aux.shape[0]
+    seg_wave, n_waves = segment_waves(plan)
+    gate = (plan.aux[:, 0] != 0).cpu().numpy()
+    ginv_all = plan.aux[:, 1].cpu().numpy()
+    ptr = _seg_ptr(plan).cpu().numpy().astype(np.int64)
+    seg_tile = plan.group_tile.cpu().numpy().astype(np.int64)[ptr[:-1]]
+    # the committed rows, by (wave, segment, lane)
+    rs, rl = np.nonzero(gate)
+    order = np.argsort(seg_wave[rs], kind="stable")
+    rs, rl = rs[order], rl[order]
+    n_rows = len(rs)
+    pos = np.full((n_segs, _LANES), -1, np.int64)
+    pos[rs, rl] = np.arange(n_rows)
+    seg, lane, col, val = _slots(plan)
+    srow = pos[seg, lane] if n_segs else np.zeros(0, np.int64)
+    keep = srow >= 0
+    order = np.argsort(srow[keep], kind="stable")
+    ecol = col[keep][order]
+    eval_ = val[keep][order].astype(np.float32)
+    eptr = np.searchsorted(srow[keep][order], np.arange(n_rows + 1))
+    n_ent = np.diff(eptr)
+    # the entries that the cache of x still holds when they are read
+    crow = seg_tile[rs] * _LANES + rl
+    rwave = seg_wave[rs]
+    wave_of, nxt_of = _cache_flags(crow, rwave, plan.n_win * _W, _X_CACHE)
+    ewave = np.repeat(rwave, n_ent)
+    hit = ((wave_of[ecol] > 0) & (wave_of[ecol] < ewave)
+           & (ewave < nxt_of[ecol]))
+    ecol = np.where(hit, ecol | _CACHED, ecol).astype(np.uint32).view(
+        np.int32)
+    # chunks: rows of one wave, at most _CHUNK_BYTES (a longer row alone)
+    cost = 16 + 8 * n_ent  # bytes of a row's record and entries
+    ccum = np.r_[0, np.cumsum(cost)]
+    wbound = np.r_[0, np.flatnonzero(np.diff(rwave)) + 1, n_rows]
+    cuts = [0]
+    for a, b in zip(wbound[:-1], wbound[1:]):
+        r = a
+        while r < b:
+            end = np.searchsorted(ccum, ccum[r] + _CHUNK_BYTES - 16,
+                                  side="right") - 1
+            end = min(max(end, r + 1), b)
+            cuts.append(end)
+            r = end
+    cuts = np.asarray(cuts, np.int64)
+    n_chunks = len(cuts) - 1
+    c_rows = np.diff(cuts)
+    c_ent = eptr[cuts[1:]] - eptr[cuts[:-1]]
+    words = 4 + 4 * c_rows + 2 * c_ent
+    words = (words + 3) // 4 * 4
+    woff = np.r_[0, np.cumsum(words)]
+    blob = np.zeros(int(woff[-1]), np.int32)
+    # each chunk's run of x (binv), where it is no wider than 4 rows a
+    # committed row and 32 KB
+    lo = np.full(n_chunks, -1, np.int64)
+    run = np.zeros(n_chunks, np.int64)
+    if n_chunks:
+        first = np.minimum.reduceat(crow, cuts[:-1]) & ~3
+        last = np.maximum.reduceat(crow, cuts[:-1])
+        width = (last + 4 - first) & ~3
+        tight = (width <= 4 * c_rows + 64) & (width <= 8192)
+        lo = np.where(tight, first, -1)
+        run = np.where(tight, width, 0)
+    blob[woff[:-1]] = c_rows
+    blob[woff[:-1] + 1] = c_ent
+    blob[woff[:-1] + 2] = lo
+    blob[woff[:-1] + 3] = run
+    chunk_of_row = np.repeat(np.arange(n_chunks), c_rows)
+    ri = np.arange(n_rows) - cuts[chunk_of_row]
+    rbase = woff[chunk_of_row] + 4 + 4 * ri
+    e0 = eptr[:-1] - eptr[cuts[chunk_of_row]]
+    blob[rbase] = crow
+    blob[rbase + 1] = e0
+    blob[rbase + 2] = e0 + n_ent
+    blob[rbase + 3] = ginv_all[rs, rl].astype(np.float32).view(np.int32)
+    chunk_of_ent = np.repeat(chunk_of_row, n_ent)
+    ei = np.arange(len(ecol)) - eptr[cuts[chunk_of_ent]]
+    ebase = woff[chunk_of_ent] + 4 + 4 * c_rows[chunk_of_ent] + 2 * ei
+    blob[ebase] = ecol
+    blob[ebase + 1] = eval_.view(np.int32)
+    mean = len(ecol) / max(n_rows, 1)
+    lanes = 1
+    while lanes < 32 and lanes * 4 < mean:
+        lanes *= 2
+    return FusedWalk(
+        blob=torch.from_numpy(blob).to(dev),
+        chunk_off=torch.from_numpy(woff * 4).to(dev),
+        span=torch.from_numpy(np.stack([lo, run], 1).astype(np.int32)).to(
+            dev),
+        n_chunks=n_chunks, n_waves=n_waves - 1,
+        stage_bytes=int(words.max()) * 4 if n_chunks else 0,
+        span_bytes=int(run.max()) * 4 if n_chunks else 0,
+        lanes=lanes, rows=n_rows, entries=len(ecol), cache=_X_CACHE,
+        cached=int(hit.sum()))
+
+
+def fused_walk(plan: TriFusedPlan) -> FusedWalk:
+    """``_walk_build`` of the plan, built once a plan and state of its
+    values and gates (an in-place write builds it anew)."""
+    return cached_on(_WALKS, plan, _walk_build, _plan_version(plan))
+
+
+def fused_walk_plain(walk: FusedWalk, binv: torch.Tensor) -> torch.Tensor:
+    """The walk on the CPU (tests): chunk by chunk, every row of a chunk
+    gathers x before any commits, ``x[row] -= Σ v·x[col] · ginv``."""
+    x = binv.clone()
+    blob = walk.blob.cpu()
+    off = (walk.chunk_off // 4).tolist()
+    for c in range(walk.n_chunks):
+        w = blob[off[c]:off[c + 1]]
+        nr, ne = int(w[0]), int(w[1])
+        rec = w[4:4 + 4 * nr].reshape(nr, 4)
+        ent = w[4 + 4 * nr:4 + 4 * nr + 2 * ne].reshape(ne, 2)
+        v = ent[:, 1].contiguous().view(torch.float32).to(x.device)
+        prod = v * x[(ent[:, 0].long() & (_CACHED - 1)).to(x.device)]
+        row_of = torch.repeat_interleave(torch.arange(nr),
+                                         (rec[:, 2] - rec[:, 1]).long())
+        acc = torch.zeros(nr, dtype=torch.float32, device=x.device)
+        acc.index_add_(0, row_of.to(x.device), prod)
+        rows = rec[:, 0].long().to(x.device)
+        ginv = rec[:, 3].contiguous().view(torch.float32).to(x.device)
+        x[rows] = x[rows] - acc * ginv
+    return x
+
+
+def _segment_part(plan: TriFusedPlan, x: torch.Tensor, sl: slice,
+                  si: torch.Tensor, vv: torch.Tensor) -> torch.Tensor:
+    """Σ over slabs ``sl`` and their sublanes of vals · x[column], per
+    lane (128,)."""
+    N = x.shape[0]
+    sub = torch.arange(8, device=x.device)[None, :, None] * _LANES
+    col = plan.slab_win[sl].long()[:, None, None] * _W + sub + (
+        si[sl].long() & 127)
+    ok = col < N
+    return (vv[sl].float() * torch.where(ok, x[col.clamp(max=N - 1)],
+                                         0.0)).sum(dim=(0, 1))
 
 
 def _fused_plain(plan: TriFusedPlan, binv: torch.Tensor) -> torch.Tensor:
     """The segments in order: gather the solved prefix, sum, commit the
     gated lanes of the segment's tile."""
     x = binv.clone()
-    N = x.shape[0]
     si = plan.s_idx.reshape(-1, 8, _LANES)
     vv = plan.vals.reshape(-1, 8, _LANES)
     ptr = _seg_ptr(plan).tolist()
     tiles = plan.group_tile.tolist()
-    sub = torch.arange(8, device=x.device)[None, :, None] * _LANES
     for seg in range(plan.aux.shape[0]):
         sl = slice(ptr[seg] * plan.group, ptr[seg + 1] * plan.group)
-        col = plan.slab_win[sl].long()[:, None, None] * _W + sub + (
-            si[sl].long() & 127)
-        ok = col < N
-        part = (vv[sl].float() * torch.where(ok, x[col.clamp(max=N - 1)],
-                                             0.0)).sum(dim=(0, 1))
+        part = _segment_part(plan, x, sl, si, vv)
         t = tiles[ptr[seg]]
         rows = slice(t * _LANES, (t + 1) * _LANES)
         xb, bb = x[rows], binv[rows]
@@ -282,59 +551,54 @@ def _fused_plain(plan: TriFusedPlan, binv: torch.Tensor) -> torch.Tensor:
 
 
 _ARGTYPES = (
-    ctypes.c_void_p,  # s_idx int8
-    ctypes.c_void_p,  # vals
-    ctypes.c_void_p,  # group_tile int32
-    ctypes.c_void_p,  # slab_win int32
-    ctypes.c_void_p,  # seg_ptr (n_segs+1,) int32
-    ctypes.c_void_p,  # aux fp32
-    ctypes.c_void_p,  # binv fp32
-    ctypes.c_void_p,  # x fp32, a copy of binv
-    ctypes.c_void_p,  # sync (2,) int32, zeroed
-    ctypes.c_int,  # n_segs
-    ctypes.c_int,  # group
-    ctypes.c_int,  # n_win
-    ctypes.c_int,  # bf16 values
+    ctypes.c_void_p,  # blob int32
+    ctypes.c_void_p,  # chunk_off (n_chunks+1,) int64
+    ctypes.c_void_p,  # span (n_chunks, 2) int32
+    ctypes.c_int,  # n_chunks
+    ctypes.c_void_p,  # x fp32: binv, solved in place
+    ctypes.c_int,  # stage bytes
+    ctypes.c_int,  # span bytes
+    ctypes.c_int,  # rows of the x cache
+    ctypes.c_int,  # lanes a row
+    ctypes.c_int,  # ablate (measurements only)
     ctypes.c_void_p,  # stream
 )
 
 
-def _fused_cuda(plan: TriFusedPlan, binv: torch.Tensor) -> torch.Tensor:
-    planes = (plan.s_idx, plan.vals, plan.group_tile, plan.slab_win,
-              plan.seg_id, plan.aux)
-    if not binv.is_cuda or not all(t.device == binv.device
-                                   and t.is_contiguous() for t in planes):
-        raise ValueError("trisolve_fused: the plan and b must be contiguous "
-                         "on one CUDA device")
-    n_groups, n_segs = plan.s_idx.shape[0], plan.aux.shape[0]
-    if (plan.s_idx.dtype != torch.int8
-            or plan.vals.dtype not in (torch.float32, torch.bfloat16)
-            or plan.s_idx.shape != (n_groups, plan.group * 8, _LANES)
-            or plan.vals.shape != plan.s_idx.shape
-            or plan.group_tile.shape != (n_groups,)
-            or plan.slab_win.shape != (n_groups * plan.group,)
-            or plan.seg_id.shape != (n_groups,)
-            or plan.aux.shape != (n_segs, 8, _LANES)
-            or plan.aux.dtype != torch.float32
-            or binv.shape != (plan.n_win * _W,)
-            or binv.dtype != torch.float32):
-        raise ValueError("trisolve_fused: inconsistent plan planes or b")
-    seg_ptr = _seg_ptr(plan)
-    x = binv.clone()
-    sync = torch.zeros(2, dtype=torch.int32, device=binv.device)
+def _fused_cuda(plan: TriFusedPlan, binv: torch.Tensor, *, lanes: int = 0,
+                ablate: int = 0) -> torch.Tensor:
+    """The wave walk on the card; solves ``binv`` (padded, (n_win·1024,)
+    fp32) in place and returns it.  ``lanes`` (threads a row, 1-32; 0 the
+    walk's choice) is a knob for measurements only; so is ``ablate``
+    (1: no store of x to global memory; 2: no row's work, the waits,
+    refills and barriers alone; 3: the barriers alone; 4: the solve
+    without the runs of binv, each row's read from x), whose result is not
+    the solve but for 4."""
+    if not binv.is_cuda or plan.vals.device != binv.device:
+        raise ValueError("trisolve_fused: the plan and b must lie on one "
+                         "CUDA device")
+    if (binv.shape != (plan.n_win * _W,) or binv.dtype != torch.float32
+            or not binv.is_contiguous()):
+        raise ValueError("trisolve_fused: b must be contiguous fp32 of the "
+                         "plan's padded length")
+    walk = fused_walk(plan)
+    lanes = lanes or walk.lanes
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError("trisolve_fused: lanes must be 1-32, a power of "
+                         "two")
+    if walk.n_chunks == 0:
+        return binv
     fn = _build.load("trisolve_fused", _ARGTYPES)
     with torch.cuda.device(binv.device):
-        err = fn(plan.s_idx.data_ptr(), plan.vals.data_ptr(),
-                 plan.group_tile.data_ptr(), plan.slab_win.data_ptr(),
-                 seg_ptr.data_ptr(), plan.aux.data_ptr(), binv.data_ptr(),
-                 x.data_ptr(), sync.data_ptr(), n_segs, plan.group,
-                 plan.n_win, int(plan.vals.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(walk.blob.data_ptr(), walk.chunk_off.data_ptr(),
+                 walk.span.data_ptr(), walk.n_chunks, binv.data_ptr(),
+                 walk.stage_bytes, walk.span_bytes, walk.cache, lanes,
+                 ablate, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"trisolve_fused: launch failed with CUDA error "
                            f"{err}")
     _build.launch_counts["trisolve_fused"] += 1
-    return x
+    return binv
 
 
 def _fused_forward(plan: TriFusedPlan, b: torch.Tensor,
@@ -348,9 +612,7 @@ def _fused_forward(plan: TriFusedPlan, b: torch.Tensor,
     if plan.s_idx.shape[0] == 0:
         x = x0
     else:
-        binv = torch.zeros(plan.n_win * _W, dtype=torch.float32,
-                           device=b.device)
-        binv[:n] = x0
+        binv = torch.nn.functional.pad(x0.float(), (0, plan.n_win * _W - n))
         x = (_fused_plain if plain else _fused_cuda)(plan, binv)[:n]
     if plan.perm is not None:
         x = x[plan.rank.long()]  # back to the caller's coordinates

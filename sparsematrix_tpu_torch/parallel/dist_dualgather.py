@@ -15,7 +15,8 @@ from typing import Tuple
 
 import torch
 
-from ..formats.base import sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from ..kernels.spmm_dualgather import spmm_dualgather
 from ..kernels.spmv_dualgather import (DualGather, pack_dualgather,
@@ -90,13 +91,28 @@ def local_dg(part: PartitionedDualGather, p_local) -> DualGather:
         n_win=part.n_win, group=part.group, k_tiles=1, nnz=0)
 
 
+_LOCAL: dict = {}
+
+
+def _local_dg_of(part: PartitionedDualGather, mesh: Mesh, axis_name):
+    """This rank's ``local_dg``, made once per partition, rank and state of
+    its planes, so that the SpMM walk's side structure (built once a pack)
+    is too.  ``shard_partitioned`` copies host planes to the card: an
+    in-place write into the partition's planes makes the copy anew."""
+    packs = cached_on(_LOCAL, part, lambda _: {}, values_version(
+        *(getattr(part, f) for f in part._data_fields)))
+    key = (mesh.axis_index(axis_name), str(mesh.device))
+    if key not in packs:
+        packs[key] = local_dg(part, shard_partitioned(part, mesh, axis_name))
+    return packs[key]
+
+
 def dist_spmv_dualgather(part: PartitionedDualGather, x, mesh: Mesh,
                          axis_name: str = "shard"):
     """``y = A @ x``: this rank's x band in, its ``band_rows`` rows of y
     out; the local product on the dual-gather SpMV kernel."""
-    p = shard_partitioned(part, mesh, axis_name)
     x_full = mesh.all_gather(x, axis_name)[: part.shape[1]]
-    return spmv_dualgather(local_dg(part, p), x_full)
+    return spmv_dualgather(_local_dg_of(part, mesh, axis_name), x_full)
 
 
 def dist_spmm_dualgather(part: PartitionedDualGather, X, mesh: Mesh,
@@ -104,6 +120,5 @@ def dist_spmm_dualgather(part: PartitionedDualGather, X, mesh: Mesh,
     """``Y = A @ X`` (X cols × k, k ≤ 64, the walk's regime): this rank's
     X row band in, its ``band_rows`` rows of Y out; the local product on
     the dual-gather multi-RHS walk."""
-    p = shard_partitioned(part, mesh, axis_name)
     X_full = mesh.all_gather(X, axis_name)[: part.shape[1]]
-    return spmm_dualgather(local_dg(part, p), X_full)
+    return spmm_dualgather(_local_dg_of(part, mesh, axis_name), X_full)

@@ -21,7 +21,8 @@ from typing import Tuple
 import scipy.sparse as sps
 import torch
 
-from ..formats.base import cached_on, sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.csr import CSR
 from ..kernels.spmm_rowlane import spmm_rowlane
 from ..kernels.spmv_rowlane import (SellRowLane, pack_sell_rowlane,
@@ -120,10 +121,13 @@ _LOCAL: dict = {}
 
 
 def _local_sell_of(part: PartitionedRowLane, mesh: Mesh, axis_name):
-    """This rank's ``local_sell``, made once per partition and rank, so
-    that the rowlane kernel's side structures (built once a pack) are
-    too."""
-    packs = cached_on(_LOCAL, part, lambda _: {})
+    """This rank's ``local_sell``, made once per partition, rank and state
+    of its planes, so that the rowlane kernel's side structures (built
+    once a pack) are too.  ``shard_partitioned`` copies host planes to the
+    card: an in-place write into the partition's planes makes the copy
+    anew."""
+    packs = cached_on(_LOCAL, part, lambda _: {}, values_version(
+        *(getattr(part, f) for f in part._data_fields)))
     key = (mesh.axis_index(axis_name), str(mesh.device))
     if key not in packs:
         packs[key] = local_sell(part, shard_partitioned(part, mesh,

@@ -1,7 +1,8 @@
 """The side structures that the card walks build from which values are
 nonzero (``sector_mask``, ``group_real``, ``rowlane_walk``,
-``superblock_walk``, ``octet_walk``) follow in-place writes into the
-pack's values: a write builds them anew, a read does not.
+``superblock_walk``, ``octet_walk``, ``kt1_walk``, ``fused_walk``) follow
+in-place writes into the pack's or plan's values: a write builds them
+anew, a read does not.
 
 They are cached on the pack (``formats.base.cached_on``) and keyed on the
 values' in-place write counter (``values_version``).  The kernels that
@@ -9,6 +10,7 @@ read them run only on the card (``test_torch_cuda.py``
 ``test_value_write_reaches_kernel``); here the structures themselves are
 checked against fresh builds on the CPU.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -18,8 +20,10 @@ import torch
 
 from sparsematrix_tpu_torch.formats import CSR
 from sparsematrix_tpu_torch.formats.base import cached_on, values_version
-from sparsematrix_tpu_torch.kernels import (pack_octet, pack_sell_rowlane,
+from sparsematrix_tpu_torch.kernels import (pack_dualgather, pack_octet,
+                                            pack_sell_rowlane,
                                             pack_superblock,
+                                            spmm_dualgather_reference,
                                             spmv_octet_reference,
                                             spmv_sell_rowlane_reference,
                                             spmv_superblock_reference)
@@ -27,6 +31,8 @@ from sparsematrix_tpu_torch.kernels import (pack_octet, pack_sell_rowlane,
 trl = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_rowlane")
 tsb = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_superblock")
 toc = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_octet")
+tsm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_dualgather")
+tfu = importlib.import_module("sparsematrix_tpu_torch.kernels.trisolve_fused")
 
 
 def _lower_lanes(dev="cpu", rows=512, cols=2048, density=0.02, seed=3):
@@ -48,6 +54,11 @@ def _sparse_rows(dev="cpu", rows=2048, cols=2048, seed=4):
 
 
 def _same(a, b):
+    if dataclasses.is_dataclass(a):
+        return all(_same(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if not isinstance(a, (tuple, torch.Tensor)):
+        return a == b
     if isinstance(a, tuple):
         return len(a) == len(b) and all(_same(u, v) for u, v in zip(a, b))
     return torch.equal(a, b)
@@ -76,6 +87,29 @@ def _zero_octet_slab(A):
     return g, k * 8, 0
 
 
+def _fused_plan(dev="cpu"):
+    from sparsematrix_tpu_torch.utils.testutils import triangular
+
+    return tfu.trisolve_fused_plan(
+        CSR.from_scipy(triangular(600, 3, band=200, seed=7), device=dev),
+        level_sort=False)
+
+
+def _zero_gated_slot(P):
+    """(group, row, lane) of a zero slot that its segment's gate reads,
+    over a column below n."""
+    g, gh, lane = torch.nonzero(P.vals == 0).T
+    win = P.slab_win.long()[g * P.group + gh // 8]
+    col = win * 1024 + (gh % 8) * 128 + (P.s_idx[g, gh, lane].long() & 127)
+    ok = (P.aux[P.seg_id.long()[g], 0, lane] != 0) & (col < P.shape[0])
+    i = int(torch.nonzero(ok)[0])
+    return int(g[i]), int(gh[i]), int(lane[i])
+
+
+def _kt1_spmm(P, x):
+    return spmm_dualgather_reference(P, x[:, None])[:, 0]
+
+
 # getter, its fresh build, the pack on a device, the cell a write fills,
 # the kernel's plain version
 CASES = {
@@ -99,6 +133,11 @@ CASES = {
                    lambda dev: pack_octet(_sparse_rows(dev), group=8,
                                           k_octets=2),
                    _zero_octet_slab, spmv_octet_reference),
+    "kt1_walk": (tsm.kt1_walk, lambda P: tsm._kt1_walk_build(P, tsm.KT1_STEP),
+                 lambda dev: pack_dualgather(_lower_lanes(dev), group=4),
+                 _zero_octet_slab, _kt1_spmm),
+    "fused_walk": (tfu.fused_walk, tfu._walk_build, _fused_plan,
+                   _zero_gated_slot, tfu.fused_forward_plain),
 }
 
 
@@ -181,3 +220,43 @@ def test_values_version_of_inference_tensors():
     with torch.inference_mode():
         t = torch.ones(3)
     assert values_version(t, torch.ones(2)) == (None, 0)
+
+
+def _local_cases():
+    import sparsematrix_tpu_torch.parallel as par
+    from sparsematrix_tpu_torch.parallel import dist_dualgather, dist_rowlane
+
+    return {
+        "dualgather": (lambda A: par.partition_dualgather(A, 1, group=4),
+                       dist_dualgather._local_dg_of, dist_dualgather.local_dg,
+                       _kt1_spmm),
+        "rowlane": (lambda A: par.partition_rowlane(A, 1, group=8),
+                    dist_rowlane._local_sell_of, dist_rowlane.local_sell,
+                    spmv_sell_rowlane_reference)}
+
+
+@pytest.mark.parametrize("name", ["dualgather", "rowlane"])
+def test_local_pack_follows_partition_writes(name):
+    """A rank's local pack of a partition (``dist_spmm_dualgather``'s and
+    ``dist_spmv_rowlane``'s, cached a partition and rank; on the card a
+    copy of the host planes) is made anew after an in-place write into
+    the partition's values, as a fresh slice; a read keeps it."""
+    from sparsematrix_tpu_torch.parallel import shard_partitioned
+    from sparsematrix_tpu_torch.parallel.mesh import Mesh
+
+    partition, local_of, local, plain = _local_cases()[name]
+    mesh = Mesh(("shard",), (None,), (0,), (1,), torch.device("cpu"))
+    part = partition(_lower_lanes())
+    first = local_of(part, mesh, "shard")
+    part.vals.sum()
+    assert local_of(part, mesh, "shard") is first
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        part.shape[1]).astype(np.float32))
+    y = plain(first, x)
+    nz = torch.nonzero(part.vals[0])[0]
+    part.vals[(0, *nz.tolist())] += 500.0
+    second = local_of(part, mesh, "shard")
+    assert second is not first
+    assert _same(second, local(part, shard_partitioned(part, mesh, "shard")))
+    assert not torch.equal(plain(second, x), y)
+    assert local_of(part, mesh, "shard") is second

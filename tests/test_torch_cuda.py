@@ -324,6 +324,77 @@ def test_dualgather_spmm_kernel(dev, case, k):
     assert_kernel_close(got, spmm_dualgather_reference(A, X))
 
 
+@pytest.mark.parametrize("step", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kt1_walk_value_writes(dev, bf16, k, step):
+    """Row 14's walk (each step) after in-place writes, made after a first
+    call built its walk: into an all-zero slab and into a padding slot of
+    a slab that holds values; Y follows the writes as the plain version
+    does.  Row 13 on a superblock pack of the same matrix beside it."""
+    tsm = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+
+    rng = np.random.default_rng(40 + k)
+    dense = gen_random_dense_sparse(rng, 700, 2500, density=0.03)
+    dense[256:384] = 0  # a tile with no entries: no slab
+    A = _dg_pack(dense, dev, group=4, bf16=bf16)
+    X = torch.from_numpy(gen_matrix_random(rng, 2500, k)).to(dev)
+    first = tsm._spmm_dualgather_cuda(A, X, step=step)
+    assert_kernel_close(first, spmm_dualgather_reference(A, X))
+    v = A.vals.reshape(A.n_slabs, 8, 128)
+    zero_slab = int(torch.nonzero(~(v != 0).any(-1).any(-1))[0])
+    real = int(torch.nonzero((v != 0).any(-1).any(-1)
+                             & (v == 0).any(-1).any(-1))[0])
+    u, lane = map(int, torch.nonzero(v[real] == 0)[0])
+    g, k0 = divmod(zero_slab, A.group)
+    A.vals[g, k0 * 8, 5] = 300.0
+    g, k0 = divmod(real, A.group)
+    A.vals[g, k0 * 8 + u, lane] = -200.0
+    want = spmm_dualgather_reference(A, X)
+    assert not torch.equal(want, first)
+    before = _build.launch_counts["spmm_dualgather"]
+    got = tsm._spmm_dualgather_cuda(A, X, step=step)
+    assert _build.launch_counts["spmm_dualgather"] == before + 1
+    assert_kernel_close(got, want)
+    S = _dg_pack(dense, dev, group=4, k_tiles=2, two_win=True, bf16=bf16)
+    assert_kernel_close(spmm_dualgather(S, X),
+                        spmm_dualgather_reference(S, X))
+
+
+@pytest.mark.parametrize("spb", [1, 3, 200])
+def test_kt1_walk_block_sizes(dev, spb):
+    """Blocks of one slab, of a few, and of more than a window holds."""
+    tsm = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+
+    rng = np.random.default_rng(spb)
+    dense = gen_random_dense_sparse(rng, 1000, 5000, density=0.02)
+    A = _dg_pack(dense, dev, group=4)
+    X = torch.from_numpy(gen_matrix_random(rng, 5000, 32)).to(dev)
+    want = spmm_dualgather_reference(A, X)
+    for step in (1, 2, 3):
+        assert_kernel_close(tsm._spmm_dualgather_cuda(A, X, step=step,
+                                                       spb=spb), want)
+
+
+def test_kt1_walk_nan_under_zero_value(dev):
+    """An inf or NaN of X under a zero value (a padding slot) gives 0 on
+    the card: the walk reads no X row there (the plain version: NaN)."""
+    rng = np.random.default_rng(44)
+    dense = gen_random_dense_sparse(rng, 300, 1500, density=0.03)
+    dense[:, 0] = 0  # a padding slot names column 0
+    A = _dg_pack(dense, dev, group=4)
+    X = torch.from_numpy(gen_matrix_random(rng, 1500, 4)).to(dev)
+    want = spmm_dualgather(A, X)
+    X[0] = float("nan")
+    assert not bool(torch.isfinite(spmm_dualgather_reference(A, X)).all())
+    got = spmm_dualgather(A, X)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert_kernel_close(got, want)
+
+
 @pytest.mark.parametrize("kw", [dict(group=4), dict(group=4, k_tiles=2,
                                                      two_win=True)])
 def test_dualgather_empty_matrix(dev, kw):
@@ -1042,6 +1113,139 @@ def test_trisolve_fused_kernel(dev, case):
                                    rtol=2e-3, atol=1e-3)
 
 
+def _poisson_ic0_card(dev, side):
+    from sparsematrix_tpu_torch.ops import ic0
+    from sparsematrix_tpu_torch.utils.testutils import poisson2d
+
+    _, sp = poisson2d(side * side)
+    return ic0(CSR.from_scipy(sp.astype(np.float32).tocsr(), device=dev))
+
+
+def _fused_twice(plan, bd, **knobs):
+    """Two launches of the fused kernel on one b: both results."""
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    out = []
+    for _ in range(2):
+        before = _build.launch_counts["trisolve_fused"]
+        if knobs:
+            binv = torch.nn.functional.pad(
+                plan.inv_diag * (bd if plan.perm is None
+                                 else bd[plan.perm.long()]),
+                (0, plan.n_win * 1024 - plan.shape[0]))
+            out.append(tf._fused_cuda(plan, binv, **knobs))
+        else:
+            out.append(tf.trisolve_fused_apply(plan, bd))
+        assert _build.launch_counts["trisolve_fused"] == before + 1
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("case", ["256-L", "256-L^T", "256-bf16", "1024-L"])
+def test_trisolve_fused_poisson(dev, case):
+    """Row 18's wave walk on the IC(0) factors of the 256² and 1024²
+    Poisson systems (1024² takes trisolve()'s fused route): against the
+    plain version and fp64, and bit-equal from call to call."""
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    side = int(case.split("-")[0])
+    L = _poisson_ic0_card(dev, side)
+    sp = L.to_scipy()
+    lower = case != "256-L^T"
+    if not lower:
+        sp = sp.T.tocsr()
+    kw = dict(dtype=torch.bfloat16) if case.endswith("bf16") else {}
+    plan = tf.trisolve_fused_plan(CSR.from_scipy(sp, device=dev),
+                                  lower=lower, **kw)
+    assert tf.fused_walk(plan).n_waves == plan.n_levels - 1
+    n = sp.shape[0]
+    b = np.random.default_rng(side).standard_normal(n).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    first, second = _fused_twice(plan, bd)
+    assert torch.equal(first, second)
+    assert_solve_close(first, tf.fused_forward_plain(plan, bd))
+    if not kw:
+        np.testing.assert_allclose(first.cpu().numpy(),
+                                   tri_oracle(sp, b, lower), rtol=2e-3,
+                                   atol=1e-3)
+
+
+def test_trisolve_fused_route_1024(dev):
+    """trisolve() sends n = 1024² to the fused engine: one launch."""
+    from sparsematrix_tpu_torch.ops import trisolve
+
+    L = _poisson_ic0_card(dev, 1024)
+    b = np.random.default_rng(3).standard_normal(L.shape[0]).astype(
+        np.float32)
+    before = dict(_build.launch_counts)
+    got = trisolve(L, torch.from_numpy(b).to(dev))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["trisolve_fused"] == before.get(
+        "trisolve_fused", 0) + 1
+    np.testing.assert_allclose(got.cpu().numpy(), tri_oracle(L.to_scipy(), b),
+                               rtol=2e-3, atol=1e-3)
+
+
+def test_trisolve_fused_shared_tile(dev):
+    """Two segments of one tile in one wave: each commits only its own
+    rows."""
+    import scipy.sparse as sps
+
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    n = 200
+    r = [1, 2, 3, 3] + list(range(n))
+    c = [0, 1, 1, 2] + list(range(n))
+    v = [0.5, -0.5, 0.25, 0.0] + [2.0] * n
+    sp = sps.csr_matrix((np.asarray(v, np.float32), (r, c)), shape=(n, n))
+    plan = tf.trisolve_fused_plan(CSR.from_scipy(sp, device=dev),
+                                  level_sort=False)
+    seg_wave, _ = tf.segment_waves(plan)
+    assert (seg_wave == 2).sum() == 2
+    b = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    got, _ = _fused_twice(plan, bd)
+    assert_solve_close(got, tf.fused_forward_plain(plan, bd))
+    np.testing.assert_allclose(got.cpu().numpy(), tri_oracle(sp, b),
+                               rtol=2e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("lanes", [0, 1, 2, 4, 8, 16, 32])
+def test_trisolve_fused_knobs(dev, lanes):
+    """Every lanes a row gives the solve, the same bits from call to
+    call."""
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    sp = triangular(3000, 6, band=700, seed=21)
+    plan = tf.trisolve_fused_plan(CSR.from_scipy(sp, device=dev))
+    b = np.random.default_rng(5).standard_normal(3000).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    first, second = _fused_twice(plan, bd, lanes=lanes)
+    assert torch.equal(first, second)
+    want = torch.nn.functional.pad(
+        tf.fused_forward_plain(plan, bd)[plan.perm.long()],
+        (0, plan.n_win * 1024 - 3000))
+    assert_solve_close(first, want)
+
+
+def test_trisolve_fused_batched(dev):
+    from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
+
+    sp = triangular(2000, 4, band=400, seed=22)
+    plan = tf.trisolve_fused_plan(CSR.from_scipy(sp, device=dev))
+    B = np.random.default_rng(6).standard_normal((2000, 3)).astype(
+        np.float32)
+    Bd = torch.from_numpy(B).to(dev)
+    before = _build.launch_counts["trisolve_fused"]
+    got = tf.trisolve_fused_apply_batched(plan, Bd)
+    assert _build.launch_counts["trisolve_fused"] == before + 3
+    want = torch.stack([tf.fused_forward_plain(plan, Bd[:, j])
+                        for j in range(3)], dim=1)
+    assert_solve_close(got, want)
+    np.testing.assert_allclose(got.cpu().numpy(), tri_oracle(sp, B),
+                               rtol=2e-3, atol=1e-3)
+
+
 def test_trisolve_gradients_on_card_match_cpu(dev):
     from sparsematrix_tpu_torch.kernels import trisolve_fused as tf
     from sparsematrix_tpu_torch.kernels import trisolve_waves as tw
@@ -1743,6 +1947,44 @@ def test_dist_world1_on_card(dev, nccl_world1):
                       par.dist_spmv_halo_var)):
         got = fn(par.shard_partitioned(part, mesh), xb, mesh)
         assert relative_check(got.double().cpu().numpy(), want)
+
+
+def test_dist_local_pack_follows_writes(dev, nccl_world1):
+    """``dist_spmv_rowlane`` and ``dist_spmm_dualgather`` on partitions
+    whose planes stay on the host (each call's local pack a cached copy
+    on the card): after an in-place write into the partition's values,
+    made after a first call, the product follows the write as the plain
+    version does."""
+    import sparsematrix_tpu_torch.parallel as par
+    from sparsematrix_tpu_torch.parallel.dist_dualgather import local_dg
+    from sparsematrix_tpu_torch.parallel.dist_rowlane import local_sell
+    from sparsematrix_tpu_torch.parallel.mesh import Mesh
+
+    mesh = nccl_world1
+    host = Mesh(("shard",), (None,), (0,), (1,), torch.device("cpu"))
+    rng = np.random.default_rng(9)
+    dense = gen_random_dense_sparse(rng, 700, 1300, density=0.03)
+    A = CSR.fromdense(dense, device="cpu")
+    x = torch.from_numpy(rng.standard_normal(1300).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((1300, 33)).astype(np.float32))
+    rl = par.partition_rowlane(A, 1, group=4)
+    dg = par.partition_dualgather(A, 1, group=4)
+    cases = [
+        (rl, lambda: par.dist_spmv_rowlane(rl, x.to(dev), mesh),
+         lambda: spmv_sell_rowlane_reference(
+             local_sell(rl, par.shard_partitioned(rl, host)), x)),
+        (dg, lambda: par.dist_spmm_dualgather(dg, X.to(dev), mesh),
+         lambda: spmm_dualgather_reference(
+             local_dg(dg, par.shard_partitioned(dg, host)), X))]
+    for part, run, plain in cases:
+        assert part.vals.device.type == "cpu"
+        first = run()
+        assert_kernel_close(first.cpu(), plain())
+        nz = torch.nonzero(part.vals[0])[0]
+        part.vals[(0, *nz.tolist())] += 500.0
+        want = plain()
+        assert not torch.equal(want, first.cpu())
+        assert_kernel_close(run().cpu(), want)
 
 
 def test_dist_cg_world1_on_card(dev, nccl_world1):

@@ -115,3 +115,61 @@ def test_spmm_rejects_split_kt1_pack():
     split = dataclasses.replace(port, splits=(1,))
     with pytest.raises(ValueError, match="superblock pack"):
         spmm_dualgather(split, torch.zeros(256, 3))
+
+
+# ---------------------------------------------------------------------------
+# row 14's walk (``kt1_walk``), on the CPU
+# ---------------------------------------------------------------------------
+
+tsm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_dualgather")
+
+
+def kt1_walk_plain(P, walk, X):
+    """Y = A @ X over the walk's slabs only, reading X under nonzero
+    values: what the card's walk computes."""
+    s, tile, win = (walk.items[:, i].long() for i in range(3))
+    iA = P.idxA.reshape(-1, 8, 128).long()[s] & 7
+    iB = P.idxB.reshape(-1, 8, 128).long()[s] & 127
+    v = P.vals.reshape(-1, 8, 128).float()[s]
+    col = win[:, None, None] * 1024 + torch.gather(iA, 2, iB) * 128 + iB
+    rows, cols = P.shape
+    ok = (v != 0) & (col < cols)
+    Xv = X[col.clamp(max=cols - 1)] * (v * ok)[..., None]
+    row = tile[:, None, None] * 128 + torch.arange(128)
+    Y = torch.zeros((P.n_tiles * 128, X.shape[1]))
+    Y.index_add_(0, row.expand_as(v).reshape(-1), Xv.reshape(-1, X.shape[1]))
+    return Y[:rows]
+
+
+@pytest.mark.parametrize("step", tsm.STEPS)
+@pytest.mark.parametrize("n,kw", [(700, dict(group=4)),
+                                  (1300, dict(group=8, bf16=True))])
+def test_kt1_walk_covers_every_slab(n, kw, step):
+    """Each slab that holds a value is listed once with its tile and
+    window, a window-major block reads one window, and the walk's sum is
+    the product."""
+    rng = np.random.default_rng(n)
+    dense = gen_random_dense_sparse(rng, n, 2 * n, density=0.02)
+    dense[128:256] = 0  # a tile with no entries
+    port, _ = packs(dense, **kw)
+    walk = tsm.kt1_walk(port, step)
+    items = walk.items.numpy()
+    real = np.flatnonzero((port.vals.reshape(port.n_slabs, -1) != 0)
+                          .any(1).numpy())
+    assert sorted(items[:, 0]) == real.tolist()
+    s = items[:, 0]
+    assert (items[:, 1] == port.group_tile.numpy()[s // port.group]).all()
+    assert (items[:, 2] == port.slab_win.numpy().reshape(-1)[s]).all()
+    ptr = walk.part_ptr.numpy()
+    assert ptr[0] == 0 and ptr[-1] == len(items) and (np.diff(ptr) >= 0).all()
+    assert len(ptr) == walk.n_blocks * walk.teams + 1
+    if step > 1:
+        for b in range(walk.n_blocks):
+            w = items[ptr[b * walk.teams]:ptr[(b + 1) * walk.teams], 2]
+            assert len(set(w.tolist())) <= 1
+    X = rng.standard_normal((2 * n, 5)).astype(np.float32)
+    got = kt1_walk_plain(port, walk, torch.from_numpy(X)).numpy()
+    want = spmm_dualgather(port, torch.from_numpy(X)).numpy()
+    # fp32 sums in another order: 1e-5 of the output's scale
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
