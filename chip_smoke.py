@@ -25,7 +25,10 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    bench's two packs (fp32 group 128 on 8 tiles with two windows, bf16
    group 512 on 32 tiles); n = 4096 at 128 entries a
    row (``csr_spmv/auto``); n = 1024 at 64 a row (k_tiles = 1); ``spmm``
-   at k = 32 on both XL packs.  Then slice 3: the JAX bench's
+   at k = 32 on both XL packs; the superblock SpMM (row 13) also at k =
+   1, 8, 33 and 64 on the auto pack and at k = 32 on the bench's two packs
+   and on ``pack_dualgather(A, k_tiles=8)`` (nibble idxA, one window a
+   slab).  Then slice 3: the JAX bench's
    ``spgemm_xl`` operands (n = 16384, d = 0.001) planned by
    ``spgemm_plan_packed`` as the auto route packs them (octet, both
    outputs), as superblock and rowlane (CSC out) and as an octet with a
@@ -54,9 +57,10 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    (n = 2048, (8, 8), block density 0.05, k = 128; also at bf16 and with
    capacity padding and an empty block-row), the grouped kernel at
    (4, 4) and at (128, 128) on n = 16384, the panel kernel on the XL BSR
-   (n = 32768, (8, 8), block density 0.0078, k = 128) and at the shape
-   block CG gives it (``block_cg_xl``'s Poisson system as a (8, 8) BSR,
-   k = 8), each BSR built by ``csr_to_bsr`` with its host seconds.  Then
+   (n = 32768, (8, 8), block density 0.0078, k = 8, 32 and 128) and at
+   the shape block CG gives it (``block_cg_xl``'s Poisson system as a
+   (8, 8) BSR, k = 8), each BSR built by ``csr_to_bsr`` with its host
+   seconds.  Then
    slice 7: the row-lane SpMM (row 8) at the JAX bench's
    ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and on the XL
    CSR as ``partition_rowlane`` packs it for one rank (k = 32, fp32 and
@@ -148,7 +152,7 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19, 21, 18 and 14, ``variant`` lines time
+   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19, 21, 18, 14, 13 and 4, ``variant`` lines time
    each knob setting and ablation beside the default in the same call: the
    Blocked-ELL split over blocks, staging alone, no zero-row skip, FMAs
    alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
@@ -167,7 +171,9 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    result is not the product); the fused walk's lanes a row and
    ablations at the 256² and 1024² IC(0) L plans, with µs a wave; the
    k_tiles = 1 SpMM walk's steps alone and slabs a block at the XL k = 32
-   case.  The trisolve timing lines give µs a dependent step too (the
+   case, and the superblock walk's at the auto pack's; the panel BSR
+   kernel's narrow and wide designs, each forced, at block CG's k = 8 and
+   the XL BSR's k = 8, 32 and 128 (each held against the plain version).  The trisolve timing lines give µs a dependent step too (the
    fused kernel's steps are its plan's segments, and its lines give its
    waves and µs a wave beside them; the 1024² plan's plain time is one
    call on the host's clock).  The timing lines of rows 5, 9, 7 and 15
@@ -1041,6 +1047,9 @@ def main() -> int:
                                                     dtype=torch.bfloat16))
     P_kt1 = timed_pack("XL spmm walk k_tiles=1",
                        lambda: dgmod.pack_dualgather(A_xl, k_tiles=1))
+    # row 13 on a superblock pack with nibble idxA over one window each
+    P_nib = timed_pack("XL fp32 k_tiles=8 (nibble, one window)",
+                       lambda: dgmod.pack_dualgather(A_xl, k_tiles=8))
     P_kt1_bf = timed_pack("XL bf16 spmm walk k_tiles=1",
                           lambda: dgmod.pack_dualgather(
                               A_xl, k_tiles=1, dtype=torch.bfloat16))
@@ -1048,10 +1057,15 @@ def main() -> int:
     X64_xl_np = np.random.default_rng(11).standard_normal(
         (sp_xl.shape[1], 64)).astype(np.float32)
     X33_xl_np = np.ascontiguousarray(X64_xl_np[:, :33])
+    # row 13's narrow panels (k = 1 and 8)
+    X1_xl_np = np.ascontiguousarray(X64_xl_np[:, :1])
+    X8_xl_np = np.ascontiguousarray(X64_xl_np[:, :8])
     Y64_xl_want = sp64_xl @ X64_xl_np.astype(np.float64)
     xl_want = {id(x_xl_np): y_xl_want, id(X_xl_np): Y_xl_want,
                id(X64_xl_np): Y64_xl_want,
-               id(X33_xl_np): Y64_xl_want[:, :33]}
+               id(X33_xl_np): Y64_xl_want[:, :33],
+               id(X1_xl_np): Y64_xl_want[:, :1],
+               id(X8_xl_np): Y64_xl_want[:, :8]}
     sp_4k, x_4k_np = random_matrix(4096, 128, seed=0)
     A_4k = CSR.from_scipy(sp_4k, device=dev)
     P_4k = timed_pack("n=4096 prepare_spmv (auto)", lambda: prepare_spmv(A_4k))
@@ -1062,6 +1076,10 @@ def main() -> int:
             and P_sb.two_win and P_4k.k_tiles == 32
             and P_4k.two_win and P_1k.k_tiles == 1):
         failures.append("auto routes picked another dual-gather layout")
+    if not (P_nib.nibble and not P_nib.two_win and P_sb.nibble
+            and P_128.two_win and P_bf.vals.dtype == torch.bfloat16):
+        failures.append("row 13's packs are not the nibble, two-window and "
+                        "bf16 packs named")
 
     dg_cases = {}  # kernel name -> [(case, pack, rhs, scipy CSR, values bytes)]
     for kname, case, P, sp, rhs_np in [
@@ -1080,7 +1098,17 @@ def main() -> int:
              X64_xl_np),
             ("spmm_dualgather", "XL bf16 k=32 k_tiles=1", P_kt1_bf, sp_xl,
              X_xl_np),
-            ("spmm_dualgather_sb", "XL k=32 auto", P_sb, sp_xl, X_xl_np)]:
+            ("spmm_dualgather_sb", "XL k=32 auto", P_sb, sp_xl, X_xl_np),
+            ("spmm_dualgather_sb", "XL k=1 auto", P_sb, sp_xl, X1_xl_np),
+            ("spmm_dualgather_sb", "XL k=8 auto", P_sb, sp_xl, X8_xl_np),
+            ("spmm_dualgather_sb", "XL k=33 auto", P_sb, sp_xl, X33_xl_np),
+            ("spmm_dualgather_sb", "XL k=64 auto", P_sb, sp_xl, X64_xl_np),
+            ("spmm_dualgather_sb", "XL k=32 two_win kt8 g128", P_128, sp_xl,
+             X_xl_np),
+            ("spmm_dualgather_sb", "XL k=32 nibble kt8", P_nib, sp_xl,
+             X_xl_np),
+            ("spmm_dualgather_sb", "XL k=32 bf16 kt32 g512", P_bf, sp_xl,
+             X_xl_np)]:
         rhs = (x_xl if rhs_np is x_xl_np else X_xl if rhs_np is X_xl_np
                else torch.from_numpy(rhs_np).to(dev))
         if kname.startswith("spmv"):
@@ -1631,6 +1659,8 @@ def main() -> int:
                       32768, (8, 8), 0.0078, 32), device=dev), (8, 8)))
     X_xb = torch.from_numpy(gen_matrix_random(
         np.random.default_rng(33), 32768, 128)).to(dev)
+    X_xb8 = X_xb[:, :8].contiguous()  # row 4's narrow design on the XL
+    X_xb32 = X_xb[:, :32].contiguous()
     P_bb = kb.pack_bsr_panels(A_bb)
     P_pad = kb.pack_bsr_panels(A_pad)
     t = time.perf_counter()
@@ -1660,6 +1690,8 @@ def main() -> int:
             ("spmm_bsr_panel", "bench (8,8) empty row, capacity +1000",
              A_pad, P_pad, X_bb),
             ("spmm_bsr_panel", "XL (8,8) k=128", A_xb, P_xb, X_xb),
+            ("spmm_bsr_panel", "XL (8,8) k=8", A_xb, P_xb, X_xb8),
+            ("spmm_bsr_panel", "XL (8,8) k=32", A_xb, P_xb, X_xb32),
             ("spmm_bsr_panel", "bench (8,8) bf16 k=128", A_bb16, P_bb16,
              X_bb16),
             ("spmm_bsr_panel", "block_cg_xl Poisson (8,8) k=8", A_pob, P_pob,
@@ -2829,13 +2861,13 @@ def main() -> int:
             variant("trisolve_fused", label, name, ms, row,
                     us_a_wave=1e3 * ms / waves)
 
-    def kt1_variants(label, P, X, row):
-        # row 14: its steps alone (1: no X read under a zero value; 2: and
-        # X's window staged; 3, the default: and the planes streamed) and
-        # slabs a block; each gives the product
+    def kt1_variants(label, P, X, row, kname="spmm_dualgather"):
+        # rows 14 and 13: the walk's steps alone (1: no X read under a
+        # zero value; 2: and X's window staged; 3, the default: and the
+        # planes streamed) and slabs a block; each gives the product
         for name, kw in [("step=1", dict(step=1)), ("step=2", dict(step=2)),
                          ("spb=64", dict(spb=64)), ("spb=256", dict(spb=256))]:
-            variant("spmm_dualgather", label, name,
+            variant(kname, label, name,
                     dev_ms(lambda kw=kw: _spmm_dualgather_cuda(P, X, **kw)),
                     row)
 
@@ -2900,6 +2932,9 @@ def main() -> int:
             dg_rows[(kname, case)] = time_dg(kname, case, P, rhs, sp, vb)
     kt1_variants("XL k=32 k_tiles=1", P_kt1, X_xl,
                  dg_rows[("spmm_dualgather", "XL k=32 k_tiles=1")])
+    kt1_variants("XL k=32 auto", P_sb, X_xl,
+                 dg_rows[("spmm_dualgather_sb", "XL k=32 auto")],
+                 "spmm_dualgather_sb")
 
     # slice 3: the pair-program SpMV kernels (and the bf16 / L=4 cases),
     # with cuSPARSE on the same matrix; the window permute one stage at a
@@ -3396,6 +3431,25 @@ def main() -> int:
             emit({"phase": "timing", **row})
             s6_rows[(kname, case)] = row
     del lib_mats
+    # row 4's two designs forced both ways (kernels/bsr.py panel_plan):
+    # each gives the product, held against the plain version at the
+    # check's tolerance (1e-5 of its scale)
+    for case, P_c, X_c in [("block_cg_xl Poisson (8,8) k=8", P_pob, X_pob),
+                           ("XL (8,8) k=8", P_xb, X_xb8),
+                           ("XL (8,8) k=32", P_xb, X_xb32),
+                           ("XL (8,8) k=128", P_xb, X_xb)]:
+        plain_c = kb.spmm_bsr_panel_reference(P_c, X_c)
+        tol = 1e-5 * max(float(plain_c.abs().max()), 1e-30)
+        for design in kb.DESIGNS:
+            def run(P_c=P_c, X_c=X_c, design=design):
+                return kb._spmm_bsr_panel_cuda(P_c, X_c, design=design)
+            err = float((run() - plain_c).abs().max())
+            variant("spmm_bsr_panel", case, f"design={design}", dev_ms(run),
+                    s6_rows[("spmm_bsr_panel", case)], max_abs_err=err,
+                    tol=tol, default=kb.panel_plan(P_c, X_c.shape[1]).design)
+            if not err <= tol:
+                failures.append(f"variant spmm_bsr_panel {case} {design}")
+        del plain_c
     for label, run in [
             ("spmm XL BSR (8,8) k=128", lambda: spmm(A_xb, X_xb)),
             ("spmm BSR (128,128) n=16384 k=128", lambda: spmm(A_big, X_big)),

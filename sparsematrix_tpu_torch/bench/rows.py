@@ -44,6 +44,20 @@ tree sees the same ones.  The groups (all by default):
   and 2 a row, and on ``block_cg_xl``'s Poisson system at k = 8; where
   the tree's walk has steps, each step alone in every case and slabs a
   block at the XL and block CG cases;
+- ``bsr``: the panel BSR product (row 4) on ``block_cg_xl``'s Poisson
+  system as a (8, 8) BSR at k = 8, the XL (8, 8) BSR and the bench's
+  (8, 8) BSR at k = 128 (and bf16), beside its plain version and
+  ``torch.sparse_bsr_tensor @ X``; where the tree has designs, each forced,
+  and at k = 8 and 32 on the XL and bench BSRs; the grouped kernel (row 3)
+  at (128, 128), n = 16384 and the bench (8, 8); an iteration of plain
+  ``block_cg`` on the (8, 8) BSR Poisson (device and wall ms, and to tol
+  1e-5);
+- ``sb``: the dual-gather SpMM on superblock packs (row 13) of the XL CSR:
+  ``prepare_spmv``'s at k = 1, 8, 32, 33 and 64 (cuSPARSE beside k = 32),
+  the bench's two-window ``group=128, k_tiles=8``, the nibble pack of
+  ``k_tiles=8`` and the bf16 ``group=512, k_tiles=32``; row 14 on the
+  k_tiles = 1 pack at k = 32; where the tree walks row 13's slabs, its
+  steps and slabs a block at the auto pack;
 - ``bench``: the bench suite's ``calibrate``, ``spmv_clustered`` and
   ``spgemm_xl`` groups (``--no-bench`` leaves them out).
 
@@ -62,7 +76,8 @@ import sys
 from pathlib import Path
 
 MIB128 = 128 * 1024 * 1024 // 4  # fp32 elements of the 128 MiB stream
-GROUPS = ("copy", "octet", "chain", "knobs", "cg", "fused", "walk", "bench")
+GROUPS = ("copy", "octet", "chain", "knobs", "cg", "fused", "walk", "bsr",
+          "sb", "bench")
 
 
 def main(argv=None) -> int:
@@ -439,6 +454,164 @@ def _walk(dev, emit, ms, **_):
           torch.randn((npo, 8), device=dev), spbs=(4, 8, 16, 32))
 
 
+def _bsr(dev, emit, ms, wall_ms, **_):
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from sparsematrix_tpu_torch.formats import CSR, csr_to_bsr
+    from sparsematrix_tpu_torch.solvers import block_cg
+    from sparsematrix_tpu_torch.utils.testutils import (gen_matrix_random,
+                                                        poisson2d)
+
+    kb = importlib.import_module("sparsematrix_tpu_torch.kernels.bsr")
+    kern = kb._spmm_bsr_panel_cuda
+    designs = "design" in inspect.signature(kern).parameters
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max().clamp(min=1e-30))
+
+    def library(A, X):
+        bm, bn = A.block_shape
+        nb = A.num_blocks
+        S = torch.sparse_bsr_tensor(
+            A.indptr.long(), A.indices[:nb].long(), A.data[:nb].to(X.dtype),
+            size=(A.num_block_rows * bm, -(-A.shape[1] // bn) * bn))
+        return lambda: S @ X
+
+    def row4(case, A, X, ks=()):
+        P = kb.pack_bsr_panels(A)
+        r = {"row": 4, "case": case, "M": P.bcols.shape[1],
+             "ms": ms(lambda: kern(P, X)),
+             "plain_ms": ms(lambda: kb.spmm_bsr_panel_reference(P, X)),
+             "err": err(kern(P, X), kb.spmm_bsr_panel_reference(P, X))}
+        try:
+            r["library_ms"] = ms(library(A, X))
+        except RuntimeError as e:  # the library refuses some shapes
+            r["library_ms"] = None
+            r["library_error"] = str(e)[:120]
+        if designs:
+            r["design"] = kb.panel_plan(P, X.shape[1]).design
+            r["design_ms"] = {d: ms(lambda d=d: kern(P, X, design=d))
+                              for d in kb.DESIGNS}
+        for k in ks:  # the designs at other widths of X
+            Xk = X[:, :k].contiguous()
+            r[f"k{k}_ms"] = (
+                {d: ms(lambda d=d: kern(P, Xk, design=d)) for d in kb.DESIGNS}
+                if designs else ms(lambda: kern(P, Xk)))
+        if designs:  # the wide design at each vector width
+            for k in (X.shape[1],) + tuple(ks):
+                Xk = X[:, :k].contiguous()
+                r[f"k{k}_wide_vec_ms"] = {
+                    v: ms(lambda v=v: kern(P, Xk, design="wide", vec=v))
+                    for v in (1, 2, 4) if k % v == 0}
+        emit(r)
+
+    def row3(case, A, X):
+        emit({"row": 3, "case": case,
+              "ms": ms(lambda: kb._spmm_bsr_cuda(A, X)),
+              "err": err(kb._spmm_bsr_cuda(A, X),
+                         kb.spmm_bsr_grouped_reference(A, X))})
+
+    n_po, po = poisson2d(65536)
+    A_po = csr_to_bsr(CSR.from_scipy(po.astype(np.float32).tocsr(),
+                                     device=dev), (8, 8))
+    B = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n_po, 8)).astype(np.float32)).to(dev)
+    row4("block_cg_xl Poisson (8,8) k=8", A_po, B)
+    res = block_cg(A_po, B, tol=1e-5, maxiter=4000)
+    run = lambda: block_cg(A_po, B, tol=0.0, maxiter=25)  # noqa: E731
+    dms, wms = ms(run) / 25, wall_ms(run) / 25
+    emit({"e2e": "block_cg_xl/block-plain BSR (8,8)",
+          "per_iter_device_ms": dms, "per_iter_wall_ms": wms,
+          "iters_to_tol": res.iters, "device_ms_to_tol": dms * res.iters,
+          "ms_to_tol": wms * res.iters})
+    del res
+    A_xb = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
+        32768, (8, 8), 0.0078, 32), device=dev), (8, 8))
+    X_xb = torch.from_numpy(gen_matrix_random(
+        np.random.default_rng(33), 32768, 128)).to(dev)
+    row4("XL (8,8) k=128", A_xb, X_xb, ks=(8, 32))
+    dense_bb, Xbb = cs.bench_bsr_dense()
+    A_bb = csr_to_bsr(CSR.fromdense(dense_bb, device=dev), (8, 8))
+    X_bb = torch.from_numpy(Xbb).to(dev)
+    row4("bench (8,8) k=128", A_bb, X_bb, ks=(8, 32))
+    row4("bench (8,8) bf16 k=128", A_bb.astype(torch.bfloat16),
+         X_bb.to(torch.bfloat16))
+    row3("bench (8,8) k=128", A_bb, X_bb)
+    A_big = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
+        16384, (128, 128), 0.1, 30), device=dev), (128, 128))
+    X_big = torch.from_numpy(gen_matrix_random(
+        np.random.default_rng(31), 16384, 128)).to(dev)
+    row3("(128,128) n=16384 k=128", A_big, X_big)
+
+
+def _sb(dev, emit, ms, **_):
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from sparsematrix_tpu_torch.formats import CSR
+    from sparsematrix_tpu_torch.kernels import pack_dualgather
+    from sparsematrix_tpu_torch.ops import prepare_spmv
+
+    smd = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+    kern = smd._spmm_dualgather_cuda
+    walked = hasattr(smd, "slab_walk")  # row 13 walks its slabs
+
+    def err(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    sp_xl, _ = cs.xl_matrix()
+    A = CSR.from_scipy(sp_xl, device=dev)
+    S = torch.sparse_csr_tensor(
+        torch.from_numpy(sp_xl.indptr.astype(np.int64)),
+        torch.from_numpy(sp_xl.indices.astype(np.int64)),
+        torch.from_numpy(sp_xl.data.astype(np.float32)),
+        size=sp_xl.shape).to(dev)
+    Xs = {k: torch.from_numpy(np.random.default_rng(
+        10 if k == 32 else k).standard_normal(
+            (sp_xl.shape[1], k)).astype(np.float32)).to(dev)
+        for k in (1, 8, 32, 33, 64)}
+
+    def row(n, case, P, X, knobs=False):
+        r = {"row": n, "case": case, "ms": ms(lambda: kern(P, X)),
+             "err": err(kern(P, X), smd.spmm_dualgather_reference(P, X)),
+             "nibble": P.nibble, "two_win": P.two_win, "k_tiles": P.k_tiles,
+             "group": P.group, "n_slabs": P.n_slabs}
+        if walked:
+            walk = smd.slab_walk(P)
+            r["items"] = int(walk.items.shape[0])
+            r["blocks"] = walk.n_blocks
+            r["windows"] = len(set(walk.items[:, 2].tolist()))
+        if knobs:
+            r["library_ms"] = ms(lambda: S @ X)
+        if knobs and (walked or n == 14):
+            r["steps_ms"] = [ms(lambda st=st: kern(P, X, step=st))
+                             for st in smd.STEPS]
+            r["spb_ms"] = {sp: ms(lambda sp=sp: kern(P, X, spb=sp))
+                           for sp in (16, 32, 64)}
+        emit(r)
+
+    P_kt1 = pack_dualgather(A, k_tiles=1)
+    row(14, "XL k=32 k_tiles=1", P_kt1, Xs[32])
+    del P_kt1
+    P_sb = prepare_spmv(A)
+    row(13, "XL k=32 auto", P_sb, Xs[32], knobs=True)
+    for k in (1, 8, 33, 64):
+        row(13, f"XL k={k} auto", P_sb, Xs[k])
+    del P_sb
+    for case, kw in (
+            ("XL k=32 group=128 k_tiles=8 two_win",
+             dict(group=128, k_tiles=8, two_win=True)),
+            ("XL k=32 k_tiles=8 (nibble, one window)", dict(k_tiles=8)),
+            ("XL k=32 bf16 group=512 k_tiles=32",
+             dict(group=512, k_tiles=32, dtype=torch.bfloat16))):
+        P = pack_dualgather(A, **kw)
+        row(13, case, P, Xs[32])
+        del P
+
+
 def _bench(dev, emit, **_):
     from sparsematrix_tpu_torch.bench import cli, suite
 
@@ -454,7 +627,8 @@ def _bench(dev, emit, **_):
 
 
 _RUNS = {"copy": _copy, "octet": _octet, "chain": _chain, "knobs": _knobs,
-         "cg": _cg, "fused": _fused, "walk": _walk, "bench": _bench}
+         "cg": _cg, "fused": _fused, "walk": _walk, "bsr": _bsr, "sb": _sb,
+         "bench": _bench}
 
 
 if __name__ == "__main__":

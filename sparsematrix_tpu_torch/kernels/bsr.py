@@ -15,6 +15,14 @@ The JAX package takes the grouped kernel for a traced container too
 (``jax.jit(spmm_bsr)``); the port has no tracers, so a small-block BSR
 reaches the grouped kernel only through ``bn % 8 != 0`` or M > 64.
 
+The panel kernel has two designs, picked on the host by ``panel_plan``:
+``narrow`` (a thread a row of Y and a 16-byte column vector, no shared
+memory: block CG's k = 8) and ``wide`` (warps that stage block-row panels
+in shared memory and spend each gathered X row on up to 8 rows), taken
+where k >= 32 and bn % 8 == 0.  Both walk each block-row's slots only up
+to its last one that holds a nonzero value (``panel_counts``): the panel
+layout pads every block-row to the longest one's M slots.
+
 Each kernel has a plain PyTorch version beside it; on CPU tensors the
 wrapper runs it, on CUDA tensors it launches the kernel or raises.
 ``spmm_bsr`` is differentiable in the stored blocks and in ``X``, with the
@@ -33,11 +41,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..formats.base import cached_on, sparse_container, static_field
+from ..formats.base import (cached_on, sparse_container, static_field,
+                            values_version)
 from ..formats.bsr import BSR
 from . import _build
 
-__all__ = ["BSRPanels", "pack_bsr_panels", "spmm_bsr",
+__all__ = ["BSRPanels", "PanelPlan", "pack_bsr_panels", "panel_counts",
+           "panel_plan",
+           "spmm_bsr",
            "spmm_bsr_grouped_reference", "spmm_bsr_panel_reference",
            "small_blocks", "takes_kernel"]
 
@@ -58,6 +69,7 @@ _GROUPED_ARGTYPES = (
 )
 _PANEL_ARGTYPES = (
     ctypes.c_void_p,  # bcols (nbr, M) int32
+    ctypes.c_void_p,  # counts (nbr,) int32: the slots walked a block-row
     ctypes.c_void_p,  # panels (nbr, bm, M*bn)
     ctypes.c_void_p,  # X (ncols, nrhs) row-major
     ctypes.c_int,  # bf16
@@ -69,6 +81,10 @@ _PANEL_ARGTYPES = (
     ctypes.c_int,  # bm
     ctypes.c_int,  # bn
     ctypes.c_int,  # nrhs
+    ctypes.c_int,  # design: 1 narrow, 2 wide
+    ctypes.c_int,  # V: columns a thread or lane
+    ctypes.c_int,  # RT: rows a wide item
+    ctypes.c_int,  # SC: slots a wide stage
     ctypes.c_void_p,  # stream
 )
 
@@ -225,22 +241,122 @@ def _spmm_bsr_cuda(A: BSR, X: torch.Tensor) -> torch.Tensor:
         A.shape[0], A.shape[1], nbr, bm, bn, X.shape[1]), out)
 
 
-def _spmm_bsr_panel_cuda(P: BSRPanels, X: torch.Tensor) -> torch.Tensor:
-    """The panel kernel (row 4)."""
+# the panel kernel's designs (csrc/spmm_bsr.cu): a thread a (row, column
+# vector) with no shared memory, or warps that stage block-row panels and
+# spend each gathered X row on several rows
+DESIGNS = {"narrow": 1, "wide": 2}
+_NARROW_MAX_K = 32
+_STAGE_ELEMS = 1024  # panel values a wide stage: about 4 KB of fp32
+_SMS = 132  # the H100's SMs: the wide plan's count on the CPU
+
+
+def _counts_build(P: BSRPanels) -> torch.Tensor:
+    bm, bn = P.block_shape
+    nbr, M = P.bcols.shape
+    nz = (P.panels.reshape(nbr, bm, M, bn) != 0).any(3).any(1)  # (nbr, M)
+    slot = torch.arange(1, M + 1, device=nz.device)
+    return torch.where(nz, slot, 0).amax(1).to(torch.int32).contiguous()
+
+
+_COUNTS: dict = {}
+
+
+def panel_counts(P: BSRPanels) -> torch.Tensor:
+    """(nbr,) int32: the slots the panel kernel walks in each block-row,
+    up to its last slot that holds a nonzero value (the slots past it are
+    padding or zero blocks and add 0); built once a pack and state of its
+    panels (``values_version``).  An inf or NaN of X under a slot past it
+    gives 0 on the card, where the plain version gives NaN."""
+    return cached_on(_COUNTS, P, _counts_build, values_version(P.panels))
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelPlan:
+    """A launch of the panel kernel.  ``narrow``: thread t computes row
+    t // (k / V) of Y at columns V·(t % (k / V)) .. + V.  ``wide``: item
+    it = (i·RC + rc)·P + p, with RC = ceil(bm / RT) and P = ceil(k / 32V),
+    is block-row i's rows RT·rc .. + RT at columns 32V·p .. + 32V (lane j
+    the V at 32V·p + V·j), its M slots walked in stages of SC; warp w of a
+    persistent grid takes items w, w + warps, ...  Rows at or past bm or
+    nrows and columns at or past k are computed by no one."""
+
+    design: str
+    V: int
+    RT: int = 1
+    SC: int = 0
+
+    def items(self, nbr: int, bm: int, k: int) -> int:
+        """Threads (narrow, over nbr·bm rows) or warp items (wide)."""
+        if self.design == "narrow":
+            return nbr * bm * (k // self.V)
+        return nbr * -(-bm // self.RT) * -(-k // (32 * self.V))
+
+
+def _widest(k: int, widths) -> int:
+    return next(v for v in widths if k % v == 0)
+
+
+def panel_plan(P: BSRPanels, k: int, design: str = "") -> PanelPlan:
+    """The panel kernel's launch for ``k`` right-hand sides.  ``design``
+    "" takes the rule: ``"wide"`` where k >= 32 and bn % 8 == 0 (each X
+    row gathered once for up to 8 rows of Y), else ``"narrow"`` (no lane
+    idle at block CG's k = 8).  Narrow: V the widest 16-byte vector that
+    divides k.  Wide: V the widest of 4, 2, 1 that divides k, leaves no
+    lane idle (V <= k / 32) and still gives 2 warp items an SM (the bench's
+    (8, 8) BSR, 256 block-rows, takes V = 2 at k = 128), else 1; RT the
+    rows an item, 8 or the power of two at or above bm; SC the slots a
+    stage of about 1024 values."""
+    bm, bn = P.block_shape
+    nbr, M = P.bcols.shape
+    if not design:
+        design = "wide" if k >= _NARROW_MAX_K and bn % 8 == 0 else "narrow"
+    if design not in DESIGNS or (design == "wide" and bn % 8):
+        raise ValueError(f"spmm_bsr_panel: design must be one of "
+                         f"{sorted(DESIGNS)} (wide: bn % 8 == 0), not "
+                         f"{design!r} at block shape {P.block_shape}")
+    if design == "narrow":
+        vmax = 16 // P.panels.element_size()
+        return PanelPlan("narrow", _widest(k, (vmax, 4, 2, 1)))
+    rt = next(r for r in (1, 2, 4, 8) if r >= min(bm, 8))
+    sc = int(np.clip(_STAGE_ELEMS // (rt * bn), 1, M))
+    dev = P.panels.device
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else _SMS)
+    v = next(v for v in (4, 2, 1) if v == 1 or (
+        k % v == 0 and v <= k // 32
+        and PanelPlan("wide", v, rt, sc).items(nbr, bm, k) >= 2 * sms))
+    return PanelPlan("wide", v, rt, sc)
+
+
+def _spmm_bsr_panel_cuda(P: BSRPanels, X: torch.Tensor, *,
+                         design: str = "", vec: int = 0) -> torch.Tensor:
+    """The panel kernel (row 4) at ``panel_plan(P, k, design)``;
+    ``design`` ("narrow" or "wide") and ``vec`` (the plan's V, which must
+    divide k; 0 the plan's own) are forced for measurements only."""
     X = _check_inputs("spmm_bsr_panel", P.panels, P.bcols, X, P.shape[1])
     bm, bn = P.block_shape
     nbr, M = P.bcols.shape
-    if P.panels.shape != (nbr, bm, M * bn) or nbr * bm < P.shape[0]:
+    if (P.panels.shape != (nbr, bm, M * bn) or nbr * bm < P.shape[0]
+            or M < 1 or P.panels.data_ptr() % 16):
         raise ValueError(f"spmm_bsr_panel: panels {tuple(P.panels.shape)} do "
                          f"not match bcols {tuple(P.bcols.shape)}, block "
-                         f"shape {P.block_shape} and matrix {P.shape}")
+                         f"shape {P.block_shape} and matrix {P.shape}, or "
+                         "are not 16-byte aligned")
+    if X.data_ptr() % 16:
+        X = X.clone()  # a fresh allocation: the kernel reads 16-byte vectors
+    plan = panel_plan(P, X.shape[1], design)
+    if vec:
+        plan = dataclasses.replace(plan, V=vec)
     out = torch.empty((P.shape[0], X.shape[1]), dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
+    counts = panel_counts(P)
     return _launch("spmm_bsr_panel", "spmm_bsr_panel", _PANEL_ARGTYPES, (
-        P.bcols.data_ptr(), P.panels.data_ptr(), X.data_ptr(),
+        P.bcols.data_ptr(), counts.data_ptr(), P.panels.data_ptr(),
+        X.data_ptr(),
         int(X.dtype == torch.bfloat16), out.data_ptr(), P.shape[0],
-        P.shape[1], nbr, M, bm, bn, X.shape[1]), out)
+        P.shape[1], nbr, M, bm, bn, X.shape[1], DESIGNS[plan.design],
+        plan.V, plan.RT, plan.SC), out)
 
 
 def panel_route(A: BSR):

@@ -9,15 +9,15 @@ tail (``spill_cap``) is then a second launch, ``csrc/spmv_pooled.cu`` on
 all k columns at once (the JAX package runs its tail kernel once a
 column; the sum is the same).
 
-A k_tiles=1 pack runs its own kernel (row 14, ``spmm_dualgather_walk``
-in the same source): it walks a list of the pack's slabs that hold a
-value (``kt1_walk``, built once a pack and state of its values), window
-by window, with the window's rows of X staged in shared memory, the slab
-planes streamed ahead by ``cp.async``, and reads no X row under a zero
-value; a superblock pack keeps the first kernel (row 13).  One
-deliberate difference: an inf or NaN of X under a zero value (a padding
-slot) gives 0 on the card, where the plain version gives NaN (as rows 7,
-9 and 15 do).
+Both kinds of pack run one kernel, ``spmm_dualgather_walk`` in the same
+source (row 14 on a k_tiles=1 pack, row 13 on a superblock pack): it
+walks a list of the pack's slabs that hold a value (``slab_walk``, built
+once a pack and state of its values), window by window (pair by pair on a
+two-window pack), with the window's (or both windows') rows of X staged in
+shared memory, the slab planes streamed ahead by ``cp.async``, and reads
+no X row under a zero value.  One deliberate difference: an
+inf or NaN of X under a zero value (a padding slot) gives 0 on the card,
+where the plain version gives NaN (as rows 7, 9 and 15 do).
 
 ``spmm_dualgather(packed, X)`` runs ``spmm_dualgather_reference`` when all
 its inputs lie on the CPU, and otherwise launches the kernels or raises.
@@ -38,11 +38,12 @@ import torch
 from ..formats.base import cached_on, values_version
 from . import _build
 from .spmv_dualgather import (_LANES, _W, DualGather, _check_pack, _dvals,
+                              _idxA_slabs, _slab_tiles, _slab_windows,
                               _slot_row_col, _slot_row_col_pooled,
-                              _tail_vals, _walk_plain, launch_pooled,
-                              launch_walk)
+                              _tail_vals, _walk_plain, launch_pooled)
 
-__all__ = ["spmm_dualgather", "spmm_dualgather_reference"]
+__all__ = ["spmm_dualgather", "spmm_dualgather_reference",
+           "slab_walk", "slab_walk_plain"]
 
 
 def _check(packed: DualGather, X: torch.Tensor) -> None:
@@ -66,7 +67,7 @@ def spmm_dualgather_reference(packed: DualGather,
 
 
 # ---------------------------------------------------------------------------
-# row 14: the k_tiles=1 walk (csrc/spmm_dualgather.cu spmm_dualgather_walk)
+# rows 13 and 14: the walk (csrc/spmm_dualgather.cu spmm_dualgather_walk)
 # ---------------------------------------------------------------------------
 
 # the walk's steps, each a kernel variant measured on its own: 1 reads no
@@ -74,9 +75,10 @@ def spmm_dualgather_reference(packed: DualGather,
 # also stages X's window in shared memory (slabs window by window, four
 # teams of four warps a block); 3 also streams the slab planes ahead
 STEPS = (1, 2, 3)
-KT1_STEP = 3  # the default
+WALK_STEP = 3  # the default
 _TEAMS = {1: 1, 2: 4, 3: 4}  # teams of four warps a block
 _SMS = 132  # the H100's SMs: the cut of a pack on the CPU
+_ITEM_CHUNK = 8192  # items a step of slab_walk_plain
 
 
 def _sms(dev: torch.device) -> int:
@@ -87,16 +89,19 @@ def _sms(dev: torch.device) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class Kt1Walk:
-    """A k_tiles=1 pack's walk: ``items`` (n_items, 4) int32, (slab, tile,
-    window, 0) of every slab that holds a nonzero value, each slab once;
-    ``part_ptr`` (n_blocks · teams + 1,) int32, the items of block b's team
+class SlabWalk:
+    """A pack's walk: ``items`` (n_items, 4) int32, (slab, tile, window,
+    0) of every slab that holds a nonzero value, each slab once, with its
+    tile (a superblock pack's ``group_tile · k_tiles + slab_tloc``) and its
+    ``slab_win`` word (on a two-window pack the pair ``wa | wb << 16``);
+    ``part_ptr`` (n_blocks · teams + 1,) int32: the items of block b's team
     q at part b·teams + q.  In pack order (step 1) a block is one team
-    walking about 16 slabs; window by window (steps 2-3) all of a block's
-    slabs read one window, which it stages, and there is about one block
-    an SM (the card holds one at a time: 512 threads of ~100 registers),
-    shared among the windows by their slabs, so that no second round of
-    blocks runs a few stragglers."""
+    walking about 16 slabs; window by window (steps 2-3; pair by pair on a
+    two-window pack), ordered by tile within a window, all of a block's
+    items read one window or pair, which it stages, and there is about one
+    block an SM (the card holds one at a time: 512 threads of ~100
+    registers), shared among the windows by their items, so that no
+    second round of blocks runs a few stragglers."""
 
     items: torch.Tensor
     part_ptr: torch.Tensor
@@ -104,14 +109,14 @@ class Kt1Walk:
     teams: int
 
 
-def _real_slabs(packed: DualGather):
-    """(slab, tile, window) int64 of the slabs holding a nonzero value, in
-    pack order."""
+def _walk_items(packed: DualGather):
+    """(slab, tile, window word) int64 of the slabs that hold a nonzero
+    value, in pack order."""
     n = packed.n_slabs
-    s = np.flatnonzero((packed.vals.reshape(n, -1) != 0).any(1).cpu().numpy())
-    tile = packed.group_tile.cpu().numpy().astype(np.int64)[s // packed.group]
-    win = packed.slab_win.reshape(-1).cpu().numpy().astype(np.int64)[s]
-    return s, tile, win
+    s = torch.nonzero((packed.vals.reshape(n, -1) != 0).any(1)).flatten()
+    tile = _slab_tiles(packed)[s]
+    win = packed.slab_win.reshape(-1)[s].long()
+    return tuple(t.cpu().numpy().astype(np.int64) for t in (s, tile, win))
 
 
 def _share(wlen: np.ndarray, total: int) -> np.ndarray:
@@ -126,8 +131,9 @@ def _share(wlen: np.ndarray, total: int) -> np.ndarray:
     return np.minimum(per, wlen)
 
 
-def _kt1_walk_build(packed: DualGather, step: int, spb: int = 0) -> Kt1Walk:
-    s, tile, win = _real_slabs(packed)
+def _slab_walk_build(packed: DualGather, step: int,
+                     spb: int = 0) -> SlabWalk:
+    s, tile, win = _walk_items(packed)
     teams = _TEAMS[step]
     sms = _sms(packed.vals.device)
     n = len(s)
@@ -159,25 +165,60 @@ def _kt1_walk_build(packed: DualGather, step: int, spb: int = 0) -> Kt1Walk:
     part_ptr = np.r_[part[:, :-1].reshape(-1), n]
     items = np.stack([s, tile, win, np.zeros_like(s)], 1).astype(np.int32)
     dev = packed.vals.device
-    return Kt1Walk(items=torch.from_numpy(items).to(dev),
-                   part_ptr=torch.from_numpy(part_ptr.astype(np.int32)).to(dev),
-                   n_blocks=n_blocks, teams=teams)
+    return SlabWalk(items=torch.from_numpy(items).to(dev),
+                    part_ptr=torch.from_numpy(part_ptr.astype(np.int32)).to(dev),
+                    n_blocks=n_blocks, teams=teams)
 
 
 _WALKS: dict = {}
 
 
-def kt1_walk(packed: DualGather, step: int = KT1_STEP,
-             spb: int = 0) -> Kt1Walk:
-    """``_kt1_walk_build`` of the pack at ``step`` and ``spb`` (slabs a
+def slab_walk(packed: DualGather, step: int = WALK_STEP,
+              spb: int = 0) -> SlabWalk:
+    """``_slab_walk_build`` of the pack at ``step`` and ``spb`` (slabs a
     block, 0: the default), built once a pack and state of its values (an
     in-place write into ``vals`` builds it anew)."""
     walks = cached_on(_WALKS, packed, lambda _: {},
                       values_version(packed.vals))
     key = (step, spb)
     if key not in walks:
-        walks[key] = _kt1_walk_build(packed, step, spb)
+        walks[key] = _slab_walk_build(packed, step, spb)
     return walks[key]
+
+
+def slab_walk_plain(packed: DualGather, X: torch.Tensor,
+                    step: int = WALK_STEP) -> torch.Tensor:
+    """The kernel's sum read off its walk on any device: every item's
+    cells times X's rows (a two-window slab's cell in the pair's first or
+    second window by idxA bit 3), added into the item's tile; the pooled
+    tail left out.  Equal to the body of ``spmm_dualgather_reference``
+    wherever X is finite."""
+    walk = slab_walk(packed, step)
+    s, tile, word, _ = walk.items.long().T
+    rows, cols = packed.shape
+    k = X.shape[1]
+    dev = X.device
+    n_win = max(packed.n_win, int((word & 0xFFFF).max()) + 1 if len(s) else 1,
+                int((word >> 16).max()) + 1 if len(s) else 1)
+    Xp = torch.zeros((n_win * _W, k), dtype=torch.float32, device=dev)
+    Xp[:cols] = X
+    y = torch.zeros((rows + 1, k), dtype=torch.float32, device=dev)
+    iB_all = packed.idxB.reshape(-1, 8, _LANES)
+    vals_all = packed.vals.reshape(-1, 8, _LANES)
+    lane = torch.arange(_LANES, device=dev)
+    for i0 in range(0, len(s), _ITEM_CHUNK):
+        sl = slice(i0, i0 + _ITEM_CHUNK)
+        si = s[sl]
+        iB = iB_all[si].long() & 127
+        ch = torch.gather(_idxA_slabs(packed)[si], 2, iB)
+        w = word[sl, None, None]
+        if packed.two_win:
+            w = torch.where(ch >= 8, w >> 16, w & 0xFFFF)
+        col = w * _W + (ch & 7) * _LANES + iB
+        row = (tile[sl, None, None] * _LANES + lane).expand_as(col)
+        prod = vals_all[si].float()[..., None] * Xp[col]
+        y.index_add_(0, row.clamp(max=rows).reshape(-1), prod.reshape(-1, k))
+    return y[:rows]
 
 
 _WALK_ARGTYPES = (
@@ -194,30 +235,37 @@ _WALK_ARGTYPES = (
     ctypes.c_int,  # k
     ctypes.c_int,  # step
     ctypes.c_int,  # bf16 values
+    ctypes.c_int,  # nibble-packed idxA
+    ctypes.c_int,  # two windows a slab
     ctypes.c_void_p,  # stream
 )
 
 
-def _launch_kt1(packed: DualGather, X: torch.Tensor, Y: torch.Tensor,
-                step: int, spb: int) -> None:
-    """Row 14's walk: ``Y += A @ X`` (Y zeroed by the caller)."""
+def _launch_walk(packed: DualGather, X: torch.Tensor, Y: torch.Tensor,
+                 step: int, spb: int) -> None:
+    """The walk: ``Y += A @ X`` (Y zeroed by the caller); counted as
+    ``spmm_dualgather`` on a k_tiles = 1 pack (row 14), else
+    ``spmm_dualgather_sb`` (row 13)."""
     n_groups, group = packed.idxB.shape[0], packed.group
     planes = (packed.idxA, packed.idxB, packed.vals)
     if not all(t.device == X.device and t.is_contiguous()
                and t.data_ptr() % 16 == 0 for t in planes + (X, Y)):
         raise ValueError("spmm_dualgather: the pack, X and Y must be "
                          "contiguous and 16-byte aligned on one CUDA device")
+    ga = group // 2 if packed.nibble else group
     if (packed.idxA.dtype != torch.int8 or packed.idxB.dtype != torch.int8
-            or packed.nibble or packed.two_win
             or packed.idxB.shape != (n_groups, group * 8, _LANES)
             or packed.vals.shape != packed.idxB.shape
-            or packed.idxA.shape != packed.idxB.shape):
-        raise ValueError("spmm_dualgather: inconsistent k_tiles=1 pack")
+            or packed.idxA.shape != (n_groups, ga * 8, _LANES)
+            or packed.slab_win.numel() != n_groups * group
+            or (packed.k_tiles == 1 and (packed.nibble or packed.two_win))
+            or (packed.nibble and group % 2)):
+        raise ValueError("spmm_dualgather: inconsistent pack planes")
     if step not in STEPS:
         raise ValueError(f"spmm_dualgather: step must be one of {STEPS}")
     rows, cols = packed.shape
     k = X.shape[1]
-    walk = kt1_walk(packed, step, spb)
+    walk = slab_walk(packed, step, spb)
     if rows == 0 or cols == 0 or k == 0 or walk.n_blocks == 0:
         return
     fn = _build.load("spmm_dualgather", _WALK_ARGTYPES,
@@ -228,18 +276,20 @@ def _launch_kt1(packed: DualGather, X: torch.Tensor, Y: torch.Tensor,
                  walk.part_ptr.data_ptr(), walk.n_blocks, X.data_ptr(),
                  Y.data_ptr(), rows, cols, k, step,
                  int(packed.vals.dtype == torch.bfloat16),
+                 int(packed.nibble), int(packed.two_win),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_dualgather: launch failed with CUDA error "
                            f"{err}")
-    _build.launch_counts["spmm_dualgather"] += 1
+    _build.launch_counts["spmm_dualgather"
+                         + ("_sb" if packed.k_tiles > 1 else "")] += 1
 
 
 def _spmm_dualgather_cuda(packed: DualGather, X: torch.Tensor, *,
                           step: int = 0, spb: int = 0) -> torch.Tensor:
-    """The kernels on the card.  ``step`` (1-3, 0 the default
-    ``KT1_STEP``) and ``spb`` (slabs a block, 0 the walk's choice) pick
-    row 14's variant, for measurements only."""
+    """The kernel on the card.  ``step`` (1-3, 0 the default
+    ``WALK_STEP``) and ``spb`` (slabs a block, 0 the walk's choice) pick
+    the walk's variant, for measurements only."""
     _check(packed, X)
     if not X.is_cuda:
         raise ValueError("spmm_dualgather: X must lie on the pack's CUDA "
@@ -247,10 +297,9 @@ def _spmm_dualgather_cuda(packed: DualGather, X: torch.Tensor, *,
     Y = torch.zeros((packed.shape[0], X.shape[1]), dtype=torch.float32,
                     device=X.device)
     X = X.contiguous()
-    if packed.k_tiles == 1:
-        _launch_kt1(packed, X, Y, step or KT1_STEP, spb)
-    else:
-        launch_walk("spmm_dualgather", packed, X, Y)
+    if X.data_ptr() % 16:
+        X = X.clone()  # a fresh allocation: the window is staged by 16 bytes
+    _launch_walk(packed, X, Y, step or WALK_STEP, spb)
     if packed.tail is not None:
         launch_pooled(packed.tail, X, Y)
     return Y

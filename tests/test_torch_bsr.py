@@ -182,6 +182,124 @@ def test_grouped_4x4_matches_jax_pallas():
     np.testing.assert_allclose(got, dense.astype(np.float64) @ X, **TOL)
 
 
+def plan_walk(P, X, plan, warps=5):
+    """Row 4's kernel at ``plan``, walked on the CPU with its index math
+    (``csrc/spmm_bsr.cu`` panel_narrow / panel_wide, the wide items dealt
+    to ``warps`` warps of a persistent grid; each block-row's slots up to
+    ``panel_counts``): Y, the writes of each (row, column) of Y and the
+    visits of each (block-row, slot, column)."""
+    bm, bn = P.block_shape
+    nbr, M = P.bcols.shape
+    nrows, ncols = P.shape
+    k = X.shape[1]
+    Xp = torch.zeros((-(-ncols // bn) * bn, k))
+    Xp[:ncols] = X
+    Y = torch.zeros((nrows, k))
+    writes = torch.zeros((nrows, k), dtype=torch.int64)
+    visits = torch.zeros((nbr, M, k), dtype=torch.int64)
+    panels = P.panels.float()
+    counts = tbp.panel_counts(P).tolist()
+
+    def product(i, rows_b, c0, c1, m0, m1):
+        slots = P.bcols[i, m0:m1].long()
+        xr = (slots[:, None] * bn + torch.arange(bn)).reshape(-1)
+        a = panels[i, rows_b, m0 * bn:m1 * bn]
+        return a @ Xp[xr, c0:c1]
+
+    if plan.design == "narrow":
+        G = k // plan.V
+        assert G * plan.V == k
+        for t in range(nbr * bm * G):
+            row, c0 = t // G, (t % G) * plan.V
+            if row >= nrows:
+                continue
+            i, r = divmod(row, bm)
+            Y[row, c0:c0 + plan.V] = product(i, [r], c0, c0 + plan.V, 0,
+                                             counts[i])[0]
+            writes[row, c0:c0 + plan.V] += 1
+            if r == 0:
+                visits[i, :counts[i], c0:c0 + plan.V] += 1
+        return Y, writes, visits
+    RT, V = plan.RT, plan.V
+    RC, PP = -(-bm // RT), -(-k // (32 * V))
+    assert plan.items(nbr, bm, k) == nbr * RC * PP
+    for w in range(warps):
+        for it in range(w, nbr * RC * PP, warps):
+            i, rc, pp = it // (RC * PP), (it // PP) % RC, it % PP
+            rows_b = [rc * RT + r for r in range(RT)
+                      if rc * RT + r < bm and i * bm + rc * RT + r < nrows]
+            c0 = pp * 32 * V
+            c1 = min(c0 + 32 * V, k)
+            acc = torch.zeros((len(rows_b), c1 - c0))
+            for ch in range(max(1, -(-counts[i] // plan.SC))):
+                m0, m1 = ch * plan.SC, min((ch + 1) * plan.SC, counts[i])
+                acc += product(i, rows_b, c0, c1, m0, m1)
+                if rc == 0:
+                    visits[i, m0:m1, c0:c1] += 1
+            Y[[i * bm + r for r in rows_b], c0:c1] = acc
+            writes[[i * bm + r for r in rows_b], c0:c1] += 1
+    return Y, writes, visits
+
+
+@pytest.mark.parametrize("design", ["", "narrow", "wide"])
+@pytest.mark.parametrize("k", [1, 8, 13, 32, 128])
+def test_panel_plan_covers_every_block_row(k, design):
+    """Row 4's launch plan (``panel_plan``) covers every block-row once:
+    each element of Y below nrows is written once, every slot of every
+    block-row up to its last nonzero one (``panel_counts``, against a
+    numpy rebuild) is walked once a column and no other, and the walk's
+    Y is the plain product; rows past nrows (a ragged last block-row) are
+    not written."""
+    dense = block_dense(k, (77, 200), (8, 8), 0.1, empty_rows=(3,))
+    port, _ = both(dense, (8, 8))
+    P = tbp.pack_bsr_panels(port)
+    X = torch.from_numpy(rhs(k, 200, k))
+    plan = tbp.panel_plan(P, k, design)
+    assert plan.design == (design or ("wide" if k >= 32 else "narrow"))
+    assert k % plan.V == 0 and plan.V * P.panels.element_size() <= 16
+    panels = P.panels.numpy().reshape(P.bcols.shape[0], 8, -1, 8)
+    real = np.flatnonzero((panels != 0).any((1, 3)).reshape(-1))
+    counts = np.zeros(P.bcols.shape[0], np.int64)
+    np.maximum.at(counts, real // P.bcols.shape[1],
+                  real % P.bcols.shape[1] + 1)
+    assert tbp.panel_counts(P).tolist() == counts.tolist()
+    assert counts.max() == P.bcols.shape[1] and counts[3] == 0
+    Y, writes, visits = plan_walk(P, X, plan)
+    assert (writes == 1).all()
+    walked = torch.arange(P.bcols.shape[1])[None, :] < torch.from_numpy(
+        counts)[:, None]
+    assert (visits == walked[..., None].long()).all()
+    np.testing.assert_allclose(
+        Y.numpy(), tbp.spmm_bsr_panel_reference(P, X).numpy(), rtol=0,
+        atol=1e-5 * float(Y.abs().max()))
+
+
+def test_panel_plan_rule():
+    """The wide design where k >= 32 and bn % 8 == 0; its vector width
+    (no lane idle, 2 warp items an SM), rows an item and slots a stage;
+    the narrow vector widths."""
+    dense = block_dense(1, (64, 64), (8, 8), 0.5)
+    P = tbp.pack_bsr_panels(both(dense, (8, 8))[0])
+    assert tbp.panel_plan(P, 32).design == "wide"
+    assert tbp.panel_plan(P, 31).design == "narrow"
+    odd = tbp.pack_bsr_panels(both(dense, (4, 4))[0])
+    assert tbp.panel_plan(odd, 128).design == "narrow"
+    with pytest.raises(ValueError, match="bn % 8"):
+        tbp.panel_plan(odd, 128, "wide")
+    wide = tbp.panel_plan(P, 128, "wide")  # 8 block-rows: the most items
+    assert (wide.V, wide.RT, wide.SC) == (1, 8, P.bcols.shape[1])
+    for nbr, k, V in ((4096, 128, 4), (4096, 32, 1), (4096, 64, 2),
+                      (256, 128, 2), (100, 128, 1), (4096, 130, 2)):
+        big = dataclasses.replace(P, bcols=P.bcols.new_zeros((nbr, 3)))
+        assert tbp.panel_plan(big, k).V == V, (nbr, k)
+    assert tbp.panel_plan(P, 13, "wide").V == 1
+    assert tbp.panel_plan(P, 130, "narrow").V == 2
+    bf = tbp.pack_bsr_panels(both(dense, (8, 8))[0].astype(torch.bfloat16))
+    assert tbp.panel_plan(bf, 8, "narrow").V == 8
+    with pytest.raises(ValueError, match="design"):
+        tbp.panel_plan(P, 8, "tiled")
+
+
 def test_panel_8x8_matches_jax_pallas():
     dense = block_dense(11, (128, 160), (8, 8), 0.12, empty_rows=(5,))
     port, ref = both(dense, (8, 8))
@@ -194,6 +312,10 @@ def test_panel_8x8_matches_jax_pallas():
     np.testing.assert_allclose(got, dense.astype(np.float64) @ X, **TOL)
     np.testing.assert_array_equal(smt.spmm_bsr(port, torch.from_numpy(X)),
                                   got)
+    for design in tbp.DESIGNS:  # the card's launch plans, walked here
+        plan = tbp.panel_plan(packed, 32, design)
+        Y, _, _ = plan_walk(packed, torch.from_numpy(X), plan)
+        np.testing.assert_allclose(Y.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("block,shape,capacity", [

@@ -1,6 +1,6 @@
 """The side structures that the card walks build from which values are
 nonzero (``sector_mask``, ``group_real``, ``rowlane_walk``,
-``superblock_walk``, ``octet_walk``, ``kt1_walk``, ``fused_walk``) follow
+``superblock_walk``, ``octet_walk``, ``slab_walk``, ``fused_walk``) follow
 in-place writes into the pack's or plan's values: a write builds them
 anew, a read does not.
 
@@ -133,9 +133,15 @@ CASES = {
                    lambda dev: pack_octet(_sparse_rows(dev), group=8,
                                           k_octets=2),
                    _zero_octet_slab, spmv_octet_reference),
-    "kt1_walk": (tsm.kt1_walk, lambda P: tsm._kt1_walk_build(P, tsm.KT1_STEP),
+    "kt1_walk": (tsm.slab_walk,
+                 lambda P: tsm._slab_walk_build(P, tsm.WALK_STEP),
                  lambda dev: pack_dualgather(_lower_lanes(dev), group=4),
                  _zero_octet_slab, _kt1_spmm),
+    "sb_walk": (tsm.slab_walk,
+                lambda P: tsm._slab_walk_build(P, tsm.WALK_STEP),
+                lambda dev: pack_dualgather(_lower_lanes(dev), group=4,
+                                            k_tiles=2, two_win=True),
+                _zero_octet_slab, _kt1_spmm),
     "fused_walk": (tfu.fused_walk, tfu._walk_build, _fused_plan,
                    _zero_gated_slot, tfu.fused_forward_plain),
 }

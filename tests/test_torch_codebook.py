@@ -43,7 +43,7 @@ def test_codebook_matmul_matches_jax(mnk):
     m, n, k = mnk
     a, port, ref = _inputs(0, m, n, k)
     got = codebook_matmul(torch.from_numpy(a), port).numpy()
-    want = np.asarray(jax_codebook_matmul(jnp.asarray(a), ref))
+    want = np.asarray(jax.jit(jax_codebook_matmul)(jnp.asarray(a), ref))
     # values span ±1000 and sums reach ~1e7; the summation order differs
     # (the JAX suite's own policy, tests/test_pallas_kernels.py)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0.5)
@@ -75,8 +75,8 @@ def test_codebook_bf16_x():
     a16 = torch.from_numpy(a).to(torch.bfloat16)
     got = codebook_matmul(a16, port)
     assert got.dtype == torch.bfloat16
-    want = np.asarray(jax_codebook_matmul(jnp.asarray(a, jnp.bfloat16), ref)
-                      .astype(jnp.float32))
+    want = np.asarray(jax.jit(jax_codebook_matmul)(
+        jnp.asarray(a, jnp.bfloat16), ref).astype(jnp.float32))
     got = got.float().numpy()
     # fp32 table times bf16-rounded X, fp32 accumulation, bf16 result
     oracle = a16.double().numpy() @ port.todense().double().numpy().T
@@ -114,8 +114,8 @@ def test_codebook_matmul_grad_matches_jax():
     ref = JaxCodebookDense.from_index_matrix(idx, table, trans=True)
     at = torch.from_numpy(a).requires_grad_()
     (codebook_matmul(at, port) ** 2).sum().backward()
-    want = np.asarray(jax.grad(
-        lambda x: jnp.sum(jax_codebook_matmul(x, ref) ** 2))(jnp.asarray(a)))
+    want = np.asarray(jax.jit(jax.grad(
+        lambda x: jnp.sum(jax_codebook_matmul(x, ref) ** 2)))(jnp.asarray(a)))
     np.testing.assert_allclose(at.grad.numpy(), want, rtol=1e-4,
                                atol=1e-4 * np.abs(want).max())
     # the index plane and the table carry no gradient

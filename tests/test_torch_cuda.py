@@ -362,6 +362,73 @@ def test_kt1_walk_value_writes(dev, bf16, k, step):
                         spmm_dualgather_reference(S, X))
 
 
+# superblock packs for row 13's walk: nibble idxA over one window, byte
+# idxA (odd group), two windows with nibble and with byte idxA, bf16
+SB_WALK = [
+    dict(group=4, k_tiles=4),
+    dict(group=3, k_tiles=2),
+    dict(group=4, k_tiles=2, two_win=True),
+    dict(group=5, k_tiles=4, two_win=True),
+    dict(group=4, k_tiles=2, two_win=True, bf16=True),
+]
+
+
+@pytest.mark.parametrize("step", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("kw", SB_WALK, ids=lambda kw: "-".join(
+    f"{a}={b}" for a, b in kw.items()))
+def test_sb_walk(dev, kw, k, step):
+    """Row 13's walk (each step) on superblock packs against the plain
+    version and fp64; then a value written into an all-zero slab, after
+    the first call built the walk, reaches the kernel."""
+    tsm = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+
+    # every pack of this matrix has an all-zero slab
+    dense = gen_random_dense_sparse(np.random.default_rng(60), 700, 3000,
+                                    density=0.03)
+    dense[256:384] = 0  # a tile with no entries: no slab
+    A = _dg_pack(dense, dev, **kw)
+    assert A.k_tiles > 1 and A.nibble == (A.group % 2 == 0)
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(k), 3000,
+                                           k)).to(dev)
+    before = _build.launch_counts["spmm_dualgather_sb"]
+    first = tsm._spmm_dualgather_cuda(A, X, step=step)
+    assert _build.launch_counts["spmm_dualgather_sb"] == before + 1
+    assert_kernel_close(first, spmm_dualgather_reference(A, X))
+    if kw.get("bf16"):  # the oracle of the bf16-rounded values
+        dense = torch.from_numpy(dense).to(torch.bfloat16).double().numpy()
+    oracle = dense.astype(np.float64) @ X.double().cpu().numpy()
+    assert relative_check(first.double().cpu().numpy(), oracle)
+    v = A.vals.reshape(A.n_slabs, 8, 128)
+    zero_slab = int(torch.nonzero(~(v != 0).any(-1).any(-1))[0])
+    g, k0 = divmod(zero_slab, A.group)
+    A.vals[g, k0 * 8, 5] = 300.0
+    want = spmm_dualgather_reference(A, X)
+    assert not torch.equal(want, first)
+    got = tsm._spmm_dualgather_cuda(A, X, step=step)
+    assert_kernel_close(got, want)
+
+
+@pytest.mark.parametrize("spb", [1, 3, 200])
+def test_sb_walk_block_sizes(dev, spb):
+    """Row 13's walk in blocks of one slab, of a few, and of more than a
+    window holds, on the auto superblock pack (two windows, nibbles)."""
+    from sparsematrix_tpu_torch.ops import prepare_spmv
+
+    tsm = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+    rng = np.random.default_rng(70 + spb)
+    dense = gen_random_dense_sparse(rng, 2048, 4096, density=0.02)
+    A = prepare_spmv(CSR.fromdense(dense, device=dev))
+    assert A.k_tiles > 1 and A.two_win
+    X = torch.from_numpy(gen_matrix_random(rng, 4096, 32)).to(dev)
+    want = spmm_dualgather_reference(A, X)
+    for step in (1, 2, 3):
+        assert_kernel_close(tsm._spmm_dualgather_cuda(A, X, step=step,
+                                                       spb=spb), want)
+
+
 @pytest.mark.parametrize("spb", [1, 3, 200])
 def test_kt1_walk_block_sizes(dev, spb):
     """Blocks of one slab, of a few, and of more than a window holds."""
@@ -1771,6 +1838,86 @@ def test_bsr_kernels(dev, case, dtype):
     if empty is not None:
         bm = block[0]
         assert float(Y[empty * bm: (empty + 1) * bm].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("design", ["", "narrow", "wide"])
+@pytest.mark.parametrize("k", [1, 8, 13, 32, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_panel_designs(dev, dtype, k, design):
+    """Row 4 in each design (and the rule's) at widths of X from 1 to 129,
+    on a BSR with an empty block-row, a ragged last block-row and X rows
+    past ncols (777 columns: the last block-column's last rows): against
+    the plain version and fp64, and bit-equal from call to call."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    dense, A = _bsr_case(11, (1000, 777), (8, 8), 0.05, dev, 9000, 3)
+    A = A.astype(dtype)
+    P = kb.pack_bsr_panels(A)
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(k), 777,
+                                           k)).to(dev, dtype)
+    _build.launch_counts.clear()
+    Y = kb._spmm_bsr_panel_cuda(P, X, design=design)
+    assert _build.launch_counts["spmm_bsr_panel"] == 1
+    assert_kernel_close(Y, kb.spmm_bsr_panel_reference(P, X))
+    assert torch.equal(Y, kb._spmm_bsr_panel_cuda(P, X, design=design))
+    assert float(Y[24:32].abs().max()) == 0.0  # block-row 3
+    want = dense.astype(np.float64) @ X.double().cpu().numpy()
+    check = quantized_check if dtype == torch.bfloat16 else relative_check
+    assert check(Y.double().cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("design", ["narrow", "wide"])
+def test_bsr_panel_nan_past_last_slot(dev, design):
+    """Row 4 walks a block-row's slots up to its last nonzero one
+    (``panel_counts``): an inf or NaN of X under the padding slots past it
+    (block-column 0, which no stored block names here) gives a finite Y on
+    the card, where the plain version gives NaN."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    dense, A = _bsr_case(12, (512, 512), (8, 8), 0.05, dev)
+    dense[:, :8] = 0
+    from sparsematrix_tpu_torch.formats import csr_to_bsr
+    A = csr_to_bsr(CSR.fromdense(dense, device=dev), (8, 8))
+    P = kb.pack_bsr_panels(A)
+    assert int(kb.panel_counts(P).min()) < P.bcols.shape[1]  # padding
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(13), 512,
+                                           40)).to(dev)
+    want = kb._spmm_bsr_panel_cuda(P, X, design=design)
+    X[:8] = float("nan")
+    assert not bool(torch.isfinite(kb.spmm_bsr_panel_reference(P, X)).all())
+    got = kb._spmm_bsr_panel_cuda(P, X, design=design)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# (block, M, k): rows an item 8 (two row chunks at bm = 16), 4 (bm = 3), 2
+# and 1; stages of fewer slots than M; a grid that walks several items a
+# warp (k = 1024 over 512 block-rows)
+PANEL_SHAPES = [((16, 8), 20, 40), ((3, 16), 30, 64), ((2, 8), 64, 36),
+                ((1, 32), 40, 33), ((32, 32), 3, 96), ((8, 8), 64, 130),
+                ((8, 8), 6, 1024)]
+
+
+@pytest.mark.parametrize("design", ["narrow", "wide"])
+@pytest.mark.parametrize("shape", PANEL_SHAPES,
+                         ids=lambda c: f"b{c[0][0]}x{c[0][1]}-M{c[1]}-k{c[2]}")
+def test_bsr_panel_shapes(dev, shape, design):
+    """Row 4 in both designs over block shapes that give the wide walk
+    other rows an item, stages and grids, against the plain version."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    block, M, k = shape
+    nbr = 4096 // block[0] if k == 1024 else 64
+    dense, A = _bsr_case(sum(block) + M, (nbr * block[0] - 1, 8 * block[1] * M),
+                         block, 0.1, dev, M=M)
+    P = kb.pack_bsr_panels(A)
+    assert P.bcols.shape[1] >= M
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(M),
+                                           A.shape[1], k)).to(dev)
+    Y = kb._spmm_bsr_panel_cuda(P, X, design=design)
+    assert_kernel_close(Y, kb.spmm_bsr_panel_reference(P, X))
+    assert relative_check(Y.double().cpu().numpy(),
+                          dense.astype(np.float64) @ X.double().cpu().numpy())
 
 
 def test_bsr_gradients_on_card(dev):

@@ -24,6 +24,7 @@ import sparsematrix_tpu.formats as jf
 import sparsematrix_tpu_torch.formats as tf
 from sparsematrix_tpu_torch.utils.testutils import (gen_random_dense_sparse,
                                                     quantized_check)
+from test_torch_spmv import jit_vjp
 
 jdg = importlib.import_module("sparsematrix_tpu.kernels.spmv_dualgather")
 tdg = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_dualgather")
@@ -162,7 +163,7 @@ def test_spmv_matches_jax(case):
     dense = gen_random_dense_sparse(rng, *shape, density=density)
     x = rng.standard_normal(shape[1]).astype(np.float32)
     port, ref = packs(dense, **kw)
-    want = np.asarray(jdg.spmv_dualgather(ref, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jdg.spmv_dualgather)(ref, jnp.asarray(x)))
     oracle = dense.astype(np.float64) @ x
     for pk in (port, carry(ref)):
         got = tdg.spmv_dualgather(pk, torch.from_numpy(x))
@@ -194,8 +195,8 @@ def test_spmv_grads_match_jax(case):
     def jax_fn(v, xx):
         return jdg.spmv_dualgather(dataclasses.replace(ref, vals=v), xx)
 
-    _, vjp = jax.vjp(jax_fn, ref.vals, jnp.asarray(x))
-    want_dv, want_gx = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    _, cot = jit_vjp(jax_fn, (ref.vals, jnp.asarray(x)), jnp.asarray(g))
+    want_dv, want_gx = (np.asarray(a) for a in cot)
 
     v = port.vals.clone().requires_grad_()
     xx = torch.from_numpy(x).requires_grad_()

@@ -100,14 +100,17 @@ def test_spill_auto_below_mean_eight_packs_no_tail():
 def test_spill_spmv_matches_jax(cap):
     """The density of test_dualgather_spill_cap (0.06 over 4096 columns,
     ~246 entries a row) on a quarter of its rows: capped body plus pooled
-    tail; the tail's own product is what the body leaves."""
+    tail; the tail's own product is what the body leaves.  The JAX kernel
+    at caps 16 and auto (one of the two fixed caps: the same kernel and
+    shape class), fp64 at every cap."""
     dense = matrix(128, 4096, 0.06, 4)
     x = np.random.default_rng(5).standard_normal(4096).astype(np.float32)
     port, ref = packs(dense, spill_cap=cap)
     assert port.tail is not None
     got = smt.spmv(port, torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(
-        got, np.asarray(jdg.spmv_dualgather(ref, jnp.asarray(x))), **TOL)
+    if cap != 8:
+        np.testing.assert_allclose(
+            got, np.asarray(jdg.spmv_dualgather(ref, jnp.asarray(x))), **TOL)
     np.testing.assert_allclose(got, dense.astype(np.float64) @ x, **TOL)
     body = smt.spmv(dataclasses.replace(port, tail=None),
                     torch.from_numpy(x))
@@ -156,7 +159,7 @@ def test_spill_spmm_superblock_matches_jax(monkeypatch, k):
     """test_spmm_dualgather_superblock_splits_and_spill with a tail: a
     superblock pack cut into calls by a small prefetch budget, with
     ``spill_cap``, through the multi-RHS walk (the tail one launch for
-    all k columns)."""
+    all k columns); the JAX kernel at k = 9, fp64 at both."""
     monkeypatch.setattr(jdg, "_SMEM_PREFETCH_BUDGET", 600)
     monkeypatch.setattr(tdg, "_SMEM_PREFETCH_BUDGET", 600)
     dense = matrix(2048, 2048, 0.02, 8)
@@ -166,8 +169,9 @@ def test_spill_spmm_superblock_matches_jax(monkeypatch, k):
     X = np.random.default_rng(9).standard_normal((2048, k)).astype(
         np.float32)
     got = smt.spmm(port, torch.from_numpy(X)).numpy()
-    np.testing.assert_allclose(
-        got, np.asarray(jmm.spmm_dualgather(ref, jnp.asarray(X))), **TOL)
+    if k > 1:
+        np.testing.assert_allclose(
+            got, np.asarray(jmm.spmm_dualgather(ref, jnp.asarray(X))), **TOL)
     np.testing.assert_allclose(got, dense.astype(np.float64) @ X, **TOL)
 
 

@@ -22,7 +22,7 @@ import torch
 
 import sparsematrix_tpu.formats as jf
 import sparsematrix_tpu_torch as smt
-from test_torch_spmv import assert_same_container
+from test_torch_spmv import assert_same_container, jit_vjp
 
 jrl = importlib.import_module("sparsematrix_tpu.kernels.spmv_rowlane")
 trl = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_rowlane")
@@ -102,9 +102,9 @@ def _check_products_and_grads(packed, jpacked, sp, kw, spmv_t, spmv_j,
     def fwd(vals, xx):
         return spmv_j(dataclasses.replace(jpacked, vals=vals), xx)
 
-    # one trace gives the JAX product and its VJP
-    jy, jvjp = jax.vjp(fwd, jpacked.vals, jnp.asarray(x))
-    jdv, jgx = jvjp(jnp.asarray(w))
+    # one jitted trace gives the JAX product and its VJP
+    jy, (jdv, jgx) = jit_vjp(fwd, (jpacked.vals, jnp.asarray(x)),
+                             jnp.asarray(w))
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **TOL)
     # the JAX x cotangent of a bf16 pack is rounded to bf16 (its scatter
     # runs in the values' type); the port's stays fp32, so against JAX it

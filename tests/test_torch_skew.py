@@ -122,10 +122,10 @@ def test_skew_products_and_vjp_match_jax():
     (y * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(y.detach().numpy(), sp64 @ x, **TOL)
     np.testing.assert_allclose(
-        y.detach().numpy(), np.asarray(jax_spmv_skew(JP, jnp.asarray(x))),
-        **TOL)
-    jg = jax.grad(lambda v: (jax_spmv_skew(JP, v) * jnp.asarray(w)).sum())(
-        jnp.asarray(x))
+        y.detach().numpy(),
+        np.asarray(jax.jit(jax_spmv_skew)(JP, jnp.asarray(x))), **TOL)
+    jg = jax.jit(jax.grad(lambda v: (jax_spmv_skew(JP, v)
+                                     * jnp.asarray(w)).sum()))(jnp.asarray(x))
     np.testing.assert_allclose(xt.grad.numpy(), sp64.T @ w, **TOL)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), **TOL)
     X = rng.uniform(-1, 1, (sp.shape[1], 3)).astype(np.float32)
@@ -135,8 +135,8 @@ def test_skew_products_and_vjp_match_jax():
     (Y * torch.from_numpy(W)).sum().backward()
     np.testing.assert_allclose(Y.detach().numpy(), sp64 @ X, **TOL)
     np.testing.assert_allclose(
-        Y.detach().numpy(), np.asarray(jax_spmm_skew(JP, jnp.asarray(X))),
-        **TOL)
+        Y.detach().numpy(),
+        np.asarray(jax.jit(jax_spmm_skew)(JP, jnp.asarray(X))), **TOL)
     np.testing.assert_allclose(Xt.grad.numpy(), sp64.T @ W, **TOL)
 
 
@@ -182,4 +182,4 @@ def test_spmm_skew_octet_base_matches_jax(monkeypatch):
         Y, np.asarray(jspmm.spmm(JA, jnp.asarray(X))), **TOL)
     # the JAX skew product on its pack: the base through its spmm_octet
     np.testing.assert_allclose(
-        Y, np.asarray(jax_spmm_skew(JP, jnp.asarray(X))), **TOL)
+        Y, np.asarray(jax.jit(jax_spmm_skew)(JP, jnp.asarray(X))), **TOL)

@@ -134,12 +134,14 @@ def test_plan_packed_matches_jax(monkeypatch, case):
         # (the JAX dual-gather kernel at this pack's 256-slab groups takes
         # ~25 s in interpret mode; its planes are held equal above)
         np.testing.assert_allclose(
-            C.data.numpy(), np.asarray(jg.spgemm_apply_packed(jpp,
-                                                              JB.data).data),
+            C.data.numpy(),
+            np.asarray(jax.jit(jg.spgemm_apply_packed)(jpp, JB.data).data),
             **TOL)
         np.testing.assert_allclose(
             Ct.data.numpy(),
-            np.asarray(jg.spgemm_apply_packed_csc(jpp, JB.data).data), **TOL)
+            np.asarray(jax.jit(jg.spgemm_apply_packed_csc)(jpp,
+                                                            JB.data).data),
+            **TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(cluster=False), dict(stripe="mod"),
@@ -173,8 +175,8 @@ def test_grad_in_b_data_matches_jax(monkeypatch, csc):
     w = np.random.default_rng(3).uniform(-1, 1, pp.c_nnz).astype(np.float32)
     b = B.data.clone().requires_grad_()
     (apply_t(pp, b).data[: pp.c_nnz] * torch.from_numpy(w)).sum().backward()
-    jgb = jax.grad(lambda v: (apply_j(jpp, v).data[: jpp.c_nnz]
-                              * jnp.asarray(w)).sum())(JB.data)
+    jgb = jax.jit(jax.grad(lambda v: (apply_j(jpp, v).data[: jpp.c_nnz]
+                                      * jnp.asarray(w)).sum()))(JB.data)
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(jgb), **TOL)
     # the plain numeric phase's gradient: the same function of b_data
     plan = tg.spgemm_plan(A, B)

@@ -28,6 +28,7 @@ from sparsematrix_tpu_torch.utils.testutils import (gen_random_dense_sparse,
 
 jdg = importlib.import_module("sparsematrix_tpu.kernels.spmv_dualgather")
 tdg = importlib.import_module("sparsematrix_tpu_torch.kernels.spmv_dualgather")
+tsm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_dualgather")
 
 CPU = "cpu"
 TOL = dict(rtol=2e-3, atol=0.5)
@@ -65,7 +66,7 @@ def test_spmm_matches_jax(n, k, kw):
     X = rng.standard_normal((n, k)).astype(np.float32)
     bf16 = kw.get("bf16", False)
     port, ref = packs(dense, **kw)
-    want = np.asarray(jax_spmm_dualgather(ref, jnp.asarray(X)))
+    want = np.asarray(jax.jit(jax_spmm_dualgather)(ref, jnp.asarray(X)))
     oracle = dense.astype(np.float64) @ X
     for pk in (port, carry(ref)):
         got = spmm_dualgather(pk, torch.from_numpy(X))
@@ -76,6 +77,9 @@ def test_spmm_matches_jax(n, k, kw):
             assert quantized_check(got, oracle)
         else:
             np.testing.assert_allclose(got, oracle, **TOL)
+    # the card's walk (rows 13 and 14), read off on the CPU
+    walked = tsm.slab_walk_plain(port, torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(walked, want, **TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(group=4, k_tiles=1),
@@ -95,8 +99,8 @@ def test_spmm_grads_match_jax(kw):
             dataclasses.replace(ref, vals=v), Xv))
 
     want_dv, want_gX = (np.asarray(a) for a in
-                        jax.grad(loss, argnums=(0, 1))(ref.vals,
-                                                       jnp.asarray(X)))
+                        jax.jit(jax.grad(loss, argnums=(0, 1)))(
+                            ref.vals, jnp.asarray(X)))
     v = port.vals.clone().requires_grad_()
     Xt = torch.from_numpy(X).requires_grad_()
     Y = spmm_dualgather(dataclasses.replace(port, vals=v), Xt)
@@ -118,10 +122,8 @@ def test_spmm_rejects_split_kt1_pack():
 
 
 # ---------------------------------------------------------------------------
-# row 14's walk (``kt1_walk``), on the CPU
+# the walk of rows 13 and 14 (``slab_walk``), on the CPU
 # ---------------------------------------------------------------------------
-
-tsm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_dualgather")
 
 
 def kt1_walk_plain(P, walk, X):
@@ -152,8 +154,9 @@ def test_kt1_walk_covers_every_slab(n, kw, step):
     dense = gen_random_dense_sparse(rng, n, 2 * n, density=0.02)
     dense[128:256] = 0  # a tile with no entries
     port, _ = packs(dense, **kw)
-    walk = tsm.kt1_walk(port, step)
+    walk = tsm.slab_walk(port, step)
     items = walk.items.numpy()
+    assert (items[:, 3] == 0).all()
     real = np.flatnonzero((port.vals.reshape(port.n_slabs, -1) != 0)
                           .any(1).numpy())
     assert sorted(items[:, 0]) == real.tolist()
@@ -171,5 +174,56 @@ def test_kt1_walk_covers_every_slab(n, kw, step):
     got = kt1_walk_plain(port, walk, torch.from_numpy(X)).numpy()
     want = spmm_dualgather(port, torch.from_numpy(X)).numpy()
     # fp32 sums in another order: 1e-5 of the output's scale
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def expected_items(P):
+    """[(slab, tile, window word, 0)] of a pack's walk, rebuilt from its
+    planes with numpy in slab order: each slab that holds a nonzero value,
+    its superblock's tile times k_tiles plus its tile in the superblock,
+    its ``slab_win`` word (a two-window slab's pair)."""
+    n = P.n_slabs
+    real = np.flatnonzero((P.vals.float().numpy().reshape(n, -1) != 0)
+                          .any(1))
+    tile = (P.group_tile.numpy().astype(np.int64).repeat(P.group) * P.k_tiles
+            + P.slab_tloc.numpy().reshape(-1))
+    win = P.slab_win.numpy().reshape(-1).astype(np.int64)
+    return [(s, tile[s], win[s], 0) for s in real]
+
+
+@pytest.mark.parametrize("step", tsm.STEPS)
+@pytest.mark.parametrize("kw", [
+    dict(group=4, k_tiles=4),                   # nibble idxA, one window
+    dict(group=3, k_tiles=2),                   # byte idxA
+    dict(group=4, k_tiles=2, two_win=True),     # two windows, nibbles
+    dict(group=5, k_tiles=4, two_win=True),     # two windows, bytes
+    dict(group=4, k_tiles=2, two_win=True, bf16=True),
+], ids=lambda kw: "-".join(f"{a}={b}" for a, b in kw.items()))
+def test_sb_walk_covers_every_slab(kw, step):
+    """Row 13's walk on a superblock pack lists each slab that holds a
+    value once (a numpy rebuild from the planes), in pack order at step 1
+    and window by window (pair by pair on a two-window pack), tile by
+    tile, from step 2; each block reads one window or pair; the walk's
+    sum is the product."""
+    rng = np.random.default_rng(7)
+    dense = gen_random_dense_sparse(rng, 700, 3000, density=0.03)
+    dense[256:384] = 0  # a tile with no entries
+    port, _ = packs(dense, **kw)
+    walk = tsm.slab_walk(port, step)
+    items = walk.items.numpy().astype(np.int64)
+    want = expected_items(port)
+    if step > 1:  # window (or pair) major, then tile, then slab
+        want = sorted(want, key=lambda it: (it[2], it[1], it[0]))
+    assert items.tolist() == [list(map(int, it)) for it in want]
+    ptr = walk.part_ptr.numpy()
+    assert ptr[0] == 0 and ptr[-1] == len(items) and (np.diff(ptr) >= 0).all()
+    if step > 1:
+        for b in range(walk.n_blocks):
+            w = items[ptr[b * walk.teams]:ptr[(b + 1) * walk.teams], 2]
+            assert len(set(w.tolist())) <= 1
+    X = torch.from_numpy(rng.standard_normal((3000, 5)).astype(np.float32))
+    got = tsm.slab_walk_plain(port, X, step).numpy()
+    want = spmm_dualgather(port, X).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())

@@ -13,6 +13,7 @@ import dataclasses
 import functools
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,6 +109,19 @@ def _assert_same_value(a, b, name):
     else:
         x, y = _np(a), _np(b)
         assert x.dtype == y.dtype and np.array_equal(x, y), name
+
+
+def jit_vjp(fn, primals, cotangent):
+    """``fn(*primals)`` and its VJP at ``cotangent``, as one ``jax.jit``
+    program: an eager call compiles each primitive of the JAX wrapper
+    apart, which costs about 2.5 times the one compile of an
+    interpret-mode Pallas reference (the octet trim case: 15.8 s eager,
+    6.0 s jitted, in one process on the CPU)."""
+    def value_and_vjp(p, c):
+        y, vjp = jax.vjp(fn, *p)
+        return y, vjp(c)
+
+    return jax.jit(value_and_vjp)(tuple(primals), cotangent)
 
 
 def assert_same_container(port, ref):

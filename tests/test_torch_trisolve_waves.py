@@ -467,7 +467,7 @@ def test_chain_kernel_refuses_cpu_tensors():
     assert tw.CHAIN_CLUSTER in (2, 4, 8, 16)
 
 
-@pytest.mark.parametrize("groups", ["copy,octet", "chain,knobs", "cg"])
+@pytest.mark.parametrize("groups", ["copy,octet", "chain,knobs", "cg", "bsr,sb"])
 def test_rows_chain_groups_need_a_card(monkeypatch, groups):
     """``bench/rows.py``'s groups (rows 19 and 21's among them) print no
     times without a CUDA card; an unknown group is refused."""
