@@ -56,15 +56,16 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    BSR grouped and panel kernels on the JAX bench's ``bsr`` point
    (n = 2048, (8, 8), block density 0.05, k = 128; also at bf16 and with
    capacity padding and an empty block-row), the grouped kernel at
-   (4, 4) and at (128, 128) on n = 16384, the panel kernel on the XL BSR
+   (4, 4) and at (128, 128), (64, 64) and (32, 128) on n = 16384 (its
+   tile design), the panel kernel on the XL BSR
    (n = 32768, (8, 8), block density 0.0078, k = 8, 32 and 128) and at
    the shape block CG gives it (``block_cg_xl``'s Poisson system as a
    (8, 8) BSR, k = 8), each BSR built by ``csr_to_bsr`` with its host
    seconds.  Then
    slice 7: the row-lane SpMM (row 8) at the JAX bench's
    ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and on the XL
-   CSR as ``partition_rowlane`` packs it for one rank (k = 32, fp32 and
-   bf16 values).  Then slice 8: the stream copy (row 22) bit for bit
+   CSR as ``partition_rowlane`` packs it for one rank (k = 8, 32 and 64
+   with fp32 values, k = 32 with bf16 values).  Then slice 8: the stream copy (row 22) bit for bit
    against ``x.clone()`` at 1, 3, 4097 elements, 128 MiB and 256 MiB,
    each also as a view one element past a 16-byte boundary.
 4. main path — ``entry()``, then ``add_mat_mat`` at 117×1023×2047 with a
@@ -152,7 +153,8 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    yardstick is cuSPARSE SpMM of the same CSR; the world-size-1 dist paths
    are timed end to end, each beside its local kernel alone.  Row 22 at
    128 MiB and 256 MiB beside ``x.clone()`` and ``y.copy_(x)``.
-   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19, 21, 18, 14, 13 and 4, ``variant`` lines time
+   For rows 2, 12, 5, 9, 7, 1, 15, 22, 19, 21, 18, 14, 13, 4, 3 and 8,
+   ``variant`` lines time
    each knob setting and ablation beside the default in the same call: the
    Blocked-ELL split over blocks, staging alone, no zero-row skip, FMAs
    alone; the tail's kernel alone, its rows a warp (k = 1) or blocks a
@@ -173,7 +175,13 @@ JSON lines; a failure in any of them exits non-zero and prints no result:
    k_tiles = 1 SpMM walk's steps alone and slabs a block at the XL k = 32
    case, and the superblock walk's at the auto pack's; the panel BSR
    kernel's narrow and wide designs, each forced, at block CG's k = 8 and
-   the XL BSR's k = 8, 32 and 128 (each held against the plain version).  The trisolve timing lines give µs a dependent step too (the
+   the XL BSR's k = 8, 32 and 128 (each held against the plain version);
+   the grouped BSR kernel's tile and skeleton designs, each forced, at
+   (128, 128), (64, 64) and (32, 128), n = 16384 (each held against the
+   plain version); the row-lane SpMM's window and gather walks, each
+   forced (held against the plain version), and the gather walk's parts
+   (no X read, no panel update, the planes and compaction alone: not the
+   product), at the XL pack's k = 8, 32 and 64 and the bench point.  The trisolve timing lines give µs a dependent step too (the
    fused kernel's steps are its plan's segments, and its lines give its
    waves and µs a wave beside them; the 1024² plan's plain time is one
    call on the host's clock).  The timing lines of rows 5, 9, 7 and 15
@@ -1654,6 +1662,13 @@ def main() -> int:
                        device=dev), (128, 128)))
     X_big = torch.from_numpy(gen_matrix_random(
         np.random.default_rng(31), 16384, 128)).to(dev)
+    # row 3's tile design at other block shapes, the same n and density
+    A_64 = s6_bsr("bsr (64,64) n=16384 d=0.1 csr_to_bsr", lambda: csr_to_bsr(
+        CSR.from_scipy(block_sparse_scipy(16384, (64, 64), 0.1, 34),
+                       device=dev), (64, 64)))
+    A_32 = s6_bsr("bsr (32,128) n=16384 d=0.1 csr_to_bsr", lambda: csr_to_bsr(
+        CSR.from_scipy(block_sparse_scipy(16384, (32, 128), 0.1, 35),
+                       device=dev), (32, 128)))
     A_xb = s6_bsr("bsr XL (8,8) n=32768 d=0.0078 csr_to_bsr", lambda:
                   csr_to_bsr(CSR.from_scipy(block_sparse_scipy(
                       32768, (8, 8), 0.0078, 32), device=dev), (8, 8)))
@@ -1683,6 +1698,8 @@ def main() -> int:
             ("spmm_bsr", "bench (8,8) k=128", A_bb, None, X_bb),
             ("spmm_bsr", "bench (4,4) k=128", A_b4, None, X_b4),
             ("spmm_bsr", "(128,128) n=16384 k=128", A_big, None, X_big),
+            ("spmm_bsr", "(64,64) n=16384 k=128", A_64, None, X_big),
+            ("spmm_bsr", "(32,128) n=16384 k=128", A_32, None, X_big),
             ("spmm_bsr", "bench (8,8) empty row, capacity +1000", A_pad,
              None, X_bb),
             ("spmm_bsr", "bench (8,8) bf16 k=128", A_bb16, None, X_bb16),
@@ -1745,17 +1762,26 @@ def main() -> int:
               else A_xl.nnz / P_c.vals.numel(),
               "plane_bytes": container_bytes(P_c)})
     sp_rl = A_rl.to_scipy()
+    # row 8 at XL k = 8 and 64: the window walk's narrow panel and its
+    # two passes
+    X_xl8, X_xl64 = (torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (sp_xl.shape[1], k)).astype(np.float32)).to(dev) for k in (8, 64))
     s7_cases = []
     for case, P_c, sp_c, X_c, bf in [
             ("bench n=2048 d=0.05 k=32", P_rl, sp_rl, X_rl, False),
             ("XL k=32 (partition_rowlane, 1 rank)", P_rlx, sp_xl, X_xl,
              False),
-            ("XL k=32 bf16 values", P_rlx16, sp_xl, X_xl, True)]:
+            ("XL k=32 bf16 values", P_rlx16, sp_xl, X_xl, True),
+            ("XL k=8 (partition_rowlane, 1 rank)", P_rlx, sp_xl, X_xl8,
+             False),
+            ("XL k=64 (partition_rowlane, 1 rank)", P_rlx, sp_xl, X_xl64,
+             False)]:
         got = _spmm_rowlane_cuda(P_c, X_c)
         want_plain = spmm_rowlane_reference(P_c, X_c)
         torch.cuda.synchronize()
         X64 = X_c.double().cpu().numpy()
-        oracle_rl = (Y_xl_want if sp_c is sp_xl and not bf else
+        oracle_rl = (Y_xl_want if sp_c is sp_xl and not bf and X_c is X_xl
+                     else
                      (bf16_rounded(sp_c) if bf else sp_c.astype(np.float64))
                      @ X64)
         errs[("spmm_rowlane", case)] = check("spmm_rowlane", case, got,
@@ -3450,6 +3476,24 @@ def main() -> int:
             if not err <= tol:
                 failures.append(f"variant spmm_bsr_panel {case} {design}")
         del plain_c
+    # row 3's two designs forced both ways (kernels/bsr.py grouped_design):
+    # each gives the product, held against the plain version at the
+    # check's tolerance
+    for case, A_c in [("(128,128) n=16384 k=128", A_big),
+                      ("(64,64) n=16384 k=128", A_64),
+                      ("(32,128) n=16384 k=128", A_32)]:
+        plain_c = kb.spmm_bsr_grouped_reference(A_c, X_big)
+        tol = 1e-5 * max(float(plain_c.abs().max()), 1e-30)
+        for design in kb.GROUPED_DESIGNS:
+            def run(A_c=A_c, design=design):
+                return kb._spmm_bsr_cuda(A_c, X_big, design=design)
+            err = float((run() - plain_c).abs().max())
+            variant("spmm_bsr", case, f"design={design}", dev_ms(run),
+                    s6_rows[("spmm_bsr", case)], max_abs_err=err, tol=tol,
+                    default=kb.grouped_design(A_c))
+            if not err <= tol:
+                failures.append(f"variant spmm_bsr {case} {design}")
+        del plain_c
     for label, run in [
             ("spmm XL BSR (8,8) k=128", lambda: spmm(A_xb, X_xb)),
             ("spmm BSR (128,128) n=16384 k=128", lambda: spmm(A_big, X_big)),
@@ -3493,6 +3537,30 @@ def main() -> int:
                "plane_bytes": container_bytes(P_c), "n_slabs": P_c.n_slabs}
         emit({"phase": "timing", **row})
         s7_rows[case] = row
+    # row 8's two walks forced both ways (kernels/spmm_rowlane.py
+    # mm_design), each the product held against the plain version, and
+    # the gather walk's parts (ablations: not the product)
+    rlm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_rowlane")
+    for case, P_c, X_c, _, _ in s7_cases:
+        plain_c = spmm_rowlane_reference(P_c, X_c)
+        tol = 1e-5 * max(float(plain_c.abs().max()), 1e-30)
+        base = s7_rows[case]
+        for design in rlm.DESIGNS:
+            def run(P_c=P_c, X_c=X_c, design=design):
+                return _spmm_rowlane_cuda(P_c, X_c, design=design)
+            err = float((run() - plain_c).abs().max())
+            variant("spmm_rowlane", case, f"design={design}", dev_ms(run),
+                    base, max_abs_err=err, tol=tol,
+                    default=rlm.mm_design(P_c, X_c.shape[1]))
+            if not err <= tol:
+                failures.append(f"variant spmm_rowlane {case} {design}")
+        for part, name in ((1, "gather walk, no X read"),
+                           (2, "gather walk, no panel update"),
+                           (3, "gather walk, planes and compaction alone")):
+            variant("spmm_rowlane", case, name, dev_ms(
+                lambda P_c=P_c, X_c=X_c, part=part: _spmm_rowlane_cuda(
+                    P_c, X_c, parts=part)), base)
+        del plain_c
     dg_local = ddg.local_dg(part_dg_full, part_dg)
     local_kernels = {
         "dist_spmm_rowlane XL k=32": lambda: _spmm_rowlane_cuda(P_rlx, X_xl),

@@ -4,7 +4,7 @@ tool that holds one tree of the port against another inside one call on
 the card (parent, change, change, parent)::
 
     python -m sparsematrix_tpu_torch.bench.rows [--groups G,...] [--label L]
-        [--out rows.json]
+        [--out rows.json] [--quick]
     python sparsematrix_tpu_torch/bench/rows.py --tree DIR [--groups ...] ...
 
 ``--tree`` times the port of the checkout in DIR (another commit, unpacked
@@ -49,9 +49,20 @@ tree sees the same ones.  The groups (all by default):
   (8, 8) BSR at k = 128 (and bf16), beside its plain version and
   ``torch.sparse_bsr_tensor @ X``; where the tree has designs, each forced,
   and at k = 8 and 32 on the XL and bench BSRs; the grouped kernel (row 3)
-  at (128, 128), n = 16384 and the bench (8, 8); an iteration of plain
-  ``block_cg`` on the (8, 8) BSR Poisson (device and wall ms, and to tol
-  1e-5);
+  at (128, 128), (64, 64) and (32, 128), n = 16384 (10 % of the block
+  slots), k = 128 (and bf16 at (128, 128)), and the bench (8, 8); where
+  the tree has its designs, each forced and the tile plan's splits; an
+  iteration of plain ``block_cg`` on the (8, 8) BSR Poisson (device and
+  wall ms, and to tol 1e-5);
+- ``rl``: the row-lane SpMM (row 8) on the XL CSR as
+  ``partition_rowlane`` packs it for one rank (fp32 and bf16 values; k =
+  8, 32, 64) beside cuSPARSE at fp32 k = 32, and at the bench's
+  ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and at d =
+  0.002 (a pack the rule sends to the gather walk); where the tree
+  has them, each walk forced and the gather walk's parts; row 14 (the
+  k_tiles = 1 dual-gather walk) on the same CSR at k = 32; then
+  ``dist_spmm_rowlane`` at world size 1 (NCCL) on the XL partition, beside
+  its local kernel alone;
 - ``sb``: the dual-gather SpMM on superblock packs (row 13) of the XL CSR:
   ``prepare_spmv``'s at k = 1, 8, 32, 33 and 64 (cuSPARSE beside k = 32),
   the bench's two-window ``group=128, k_tiles=8``, the nibble pack of
@@ -60,6 +71,10 @@ tree sees the same ones.  The groups (all by default):
   steps and slabs a block at the auto pack;
 - ``bench``: the bench suite's ``calibrate``, ``spmv_clustered`` and
   ``spgemm_xl`` groups (``--no-bench`` leaves them out).
+
+``--quick`` times only each case's default call in ``rl`` and ``bsr`` (no
+plain versions, library calls, knob sweeps or block CG), so that four
+trees fit one call.
 
 Device times as ``chip_smoke.py`` takes them (``utils.timer.timed_ms``:
 L2 flushed, each call behind a spin), after every kernel of the tree is
@@ -77,7 +92,7 @@ from pathlib import Path
 
 MIB128 = 128 * 1024 * 1024 // 4  # fp32 elements of the 128 MiB stream
 GROUPS = ("copy", "octet", "chain", "knobs", "cg", "fused", "walk", "bsr",
-          "sb", "bench")
+          "sb", "rl", "bench")
 
 
 def main(argv=None) -> int:
@@ -89,6 +104,9 @@ def main(argv=None) -> int:
                     help="comma-separated, of " + ", ".join(GROUPS))
     ap.add_argument("--no-bench", action="store_true",
                     help="leave the bench group out")
+    ap.add_argument("--quick", action="store_true",
+                    help="rl and bsr: each case's default call only (no "
+                         "plain versions, library calls or knobs)")
     args = ap.parse_args(argv)
     groups = [g for g in args.groups.split(",")
               if g and not (args.no_bench and g == "bench")]
@@ -126,7 +144,7 @@ def main(argv=None) -> int:
     def ms(fn):
         return timed_ms(fn, flush, rate)
 
-    ctx = dict(dev=dev, emit=emit, ms=ms, wall_ms=wall_ms)
+    ctx = dict(dev=dev, emit=emit, ms=ms, wall_ms=wall_ms, quick=args.quick)
     for group in groups:
         _RUNS[group](**ctx)
 
@@ -454,7 +472,7 @@ def _walk(dev, emit, ms, **_):
           torch.randn((npo, 8), device=dev), spbs=(4, 8, 16, 32))
 
 
-def _bsr(dev, emit, ms, wall_ms, **_):
+def _bsr(dev, emit, ms, wall_ms, quick=False, **_):
     import chip_smoke as cs
     import numpy as np
     import torch
@@ -481,6 +499,9 @@ def _bsr(dev, emit, ms, wall_ms, **_):
 
     def row4(case, A, X, ks=()):
         P = kb.pack_bsr_panels(A)
+        if quick:
+            emit({"row": 4, "case": case, "ms": ms(lambda: kern(P, X))})
+            return
         r = {"row": 4, "case": case, "M": P.bcols.shape[1],
              "ms": ms(lambda: kern(P, X)),
              "plain_ms": ms(lambda: kb.spmm_bsr_panel_reference(P, X)),
@@ -507,11 +528,35 @@ def _bsr(dev, emit, ms, wall_ms, **_):
                     for v in (1, 2, 4) if k % v == 0}
         emit(r)
 
-    def row3(case, A, X):
-        emit({"row": 3, "case": case,
-              "ms": ms(lambda: kb._spmm_bsr_cuda(A, X)),
-              "err": err(kb._spmm_bsr_cuda(A, X),
-                         kb.spmm_bsr_grouped_reference(A, X))})
+    tiles = hasattr(kb, "tile_plan")  # the grouped kernel's designs
+
+    def row3(case, A, X, knobs=False):
+        knobs = knobs and not quick
+        r = {"row": 3, "case": case,
+             "ms": ms(lambda: kb._spmm_bsr_cuda(A, X)),
+             "err": err(kb._spmm_bsr_cuda(A, X),
+                        kb.spmm_bsr_grouped_reference(A, X))}
+        if tiles:
+            r["design"] = kb.grouped_design(A)
+            r["bit_equal"] = bool(torch.equal(kb._spmm_bsr_cuda(A, X),
+                                              kb._spmm_bsr_cuda(A, X)))
+        if knobs:
+            r["plain_ms"] = ms(lambda: kb.spmm_bsr_grouped_reference(A, X))
+            try:
+                r["library_ms"] = ms(library(A, X))
+            except (RuntimeError, NotImplementedError) as e:
+                r["library_ms"] = None
+                r["library_error"] = str(e)[:120]
+        if knobs and tiles:
+            r["design_ms"] = {d: ms(lambda d=d: kb._spmm_bsr_cuda(
+                A, X, design=d)) for d in kb.GROUPED_DESIGNS}
+            plan = kb.tile_plan(A, X.shape[1])
+            r["plan"] = {"TR": plan.TR, "TC": plan.TC, "split": plan.split,
+                         "items": int(plan.items.shape[0]),
+                         "partials": plan.n_partials, "grid": plan.grid}
+            r["split_ms"] = {sp: ms(lambda sp=sp: kb._spmm_bsr_cuda(
+                A, X, split=sp)) for sp in (1, 2, 3, 4, 6, 8, 12, 1000)}
+        emit(r)
 
     n_po, po = poisson2d(65536)
     A_po = csr_to_bsr(CSR.from_scipy(po.astype(np.float32).tocsr(),
@@ -519,14 +564,16 @@ def _bsr(dev, emit, ms, wall_ms, **_):
     B = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (n_po, 8)).astype(np.float32)).to(dev)
     row4("block_cg_xl Poisson (8,8) k=8", A_po, B)
-    res = block_cg(A_po, B, tol=1e-5, maxiter=4000)
-    run = lambda: block_cg(A_po, B, tol=0.0, maxiter=25)  # noqa: E731
-    dms, wms = ms(run) / 25, wall_ms(run) / 25
-    emit({"e2e": "block_cg_xl/block-plain BSR (8,8)",
-          "per_iter_device_ms": dms, "per_iter_wall_ms": wms,
-          "iters_to_tol": res.iters, "device_ms_to_tol": dms * res.iters,
-          "ms_to_tol": wms * res.iters})
-    del res
+    if not quick:
+        res = block_cg(A_po, B, tol=1e-5, maxiter=4000)
+        run = lambda: block_cg(A_po, B, tol=0.0, maxiter=25)  # noqa: E731
+        dms, wms = ms(run) / 25, wall_ms(run) / 25
+        emit({"e2e": "block_cg_xl/block-plain BSR (8,8)",
+              "per_iter_device_ms": dms, "per_iter_wall_ms": wms,
+              "iters_to_tol": res.iters,
+              "device_ms_to_tol": dms * res.iters,
+              "ms_to_tol": wms * res.iters})
+        del res
     A_xb = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
         32768, (8, 8), 0.0078, 32), device=dev), (8, 8))
     X_xb = torch.from_numpy(gen_matrix_random(
@@ -536,14 +583,21 @@ def _bsr(dev, emit, ms, wall_ms, **_):
     A_bb = csr_to_bsr(CSR.fromdense(dense_bb, device=dev), (8, 8))
     X_bb = torch.from_numpy(Xbb).to(dev)
     row4("bench (8,8) k=128", A_bb, X_bb, ks=(8, 32))
-    row4("bench (8,8) bf16 k=128", A_bb.astype(torch.bfloat16),
-         X_bb.to(torch.bfloat16))
+    if not quick:
+        row4("bench (8,8) bf16 k=128", A_bb.astype(torch.bfloat16),
+             X_bb.to(torch.bfloat16))
     row3("bench (8,8) k=128", A_bb, X_bb)
-    A_big = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
-        16384, (128, 128), 0.1, 30), device=dev), (128, 128))
     X_big = torch.from_numpy(gen_matrix_random(
         np.random.default_rng(31), 16384, 128)).to(dev)
-    row3("(128,128) n=16384 k=128", A_big, X_big)
+    for block, seed in (((128, 128), 30), ((64, 64), 34), ((32, 128), 35)):
+        A_big = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
+            16384, block, 0.1, seed), device=dev), block)
+        name = f"({block[0]},{block[1]}) n=16384 k=128"
+        row3(name, A_big, X_big, knobs=True)
+        if block == (128, 128) and not quick:
+            row3(name + " bf16", A_big.astype(torch.bfloat16),
+                 X_big.to(torch.bfloat16), knobs=True)
+        del A_big
 
 
 def _sb(dev, emit, ms, **_):
@@ -612,6 +666,112 @@ def _sb(dev, emit, ms, **_):
         del P
 
 
+def _rl(dev, emit, ms, wall_ms, quick=False, **_):
+    import dataclasses
+    import tempfile
+
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sparsematrix_tpu_torch import parallel as par
+    from sparsematrix_tpu_torch.formats import CSR
+    from sparsematrix_tpu_torch.kernels import (pack_dualgather,
+                                                pack_sell_rowlane)
+    from sparsematrix_tpu_torch.parallel import dist_rowlane as drl
+    from sparsematrix_tpu_torch.utils.testutils import (
+        gen_matrix_random, gen_random_dense_sparse)
+
+    rmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_rowlane")
+    kern = rmod._spmm_rowlane_cuda
+    knobs = inspect.signature(kern).parameters
+    designs = "design" in knobs
+
+    def err(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def row(case, P, X, S=None, plain=False):
+        r = {"row": 8, "case": case, "ms": ms(lambda: kern(P, X)),
+             "n_slabs": P.n_slabs}
+        if quick:
+            emit(r)
+            return
+        if plain:
+            r["err"] = err(kern(P, X), rmod.spmm_rowlane_reference(P, X))
+        if S is not None:
+            r["library_ms"] = ms(lambda: S @ X)
+        if designs:
+            r["design"] = rmod.mm_design(P, X.shape[1])
+            walk = rmod.rowlane_mm_walk(P)
+            r["walk"] = {"items": int(walk.items.shape[0]),
+                         "blocks": walk.n_blocks}
+            r["design_ms"] = {d: ms(lambda d=d: kern(P, X, design=d))
+                              for d in rmod.DESIGNS}
+        if "parts" in knobs:
+            r["gather_parts_ms"] = {p: ms(lambda p=p: kern(P, X, parts=p))
+                                    for p in (1, 2, 3)}
+        emit(r)
+
+    sp_xl, _ = cs.xl_matrix()
+    A = CSR.from_scipy(sp_xl, device=dev)
+    part = par.partition_rowlane(A, 1)
+    part = dataclasses.replace(part, **{
+        f: getattr(part, f).to(dev) for f in part._data_fields})
+    P = drl.local_sell(part, part)
+    P16 = dataclasses.replace(P, vals=P.vals.to(torch.bfloat16))
+    S = torch.sparse_csr_tensor(
+        torch.from_numpy(sp_xl.indptr.astype(np.int64)),
+        torch.from_numpy(sp_xl.indices.astype(np.int64)),
+        torch.from_numpy(sp_xl.data.astype(np.float32)),
+        size=sp_xl.shape).to(dev)
+    Xs = {k: torch.from_numpy(np.random.default_rng(
+        10 if k == 32 else k).standard_normal(
+            (sp_xl.shape[1], k)).astype(np.float32)).to(dev)
+        for k in (8, 32, 64)}
+    for k, X in Xs.items():
+        row(f"XL partition_rowlane k={k}", P, X, S if k == 32 else None,
+            plain=k == 32)
+        row(f"XL partition_rowlane k={k} bf16 values", P16, X)
+    del P16
+    smd = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_dualgather")
+    P14 = pack_dualgather(A, k_tiles=1)
+    emit({"row": 14, "case": "XL k=32 k_tiles=1",
+          "ms": ms(lambda: smd._spmm_dualgather_cuda(P14, Xs[32]))})
+    del P14
+
+    rng = np.random.default_rng(1)
+    dense = gen_random_dense_sparse(rng, 2048, 2048, density=0.05)
+    Xb = torch.from_numpy(gen_matrix_random(rng, 2048, 32)).to(dev)
+    Pb = pack_sell_rowlane(CSR.fromdense(dense, device=dev))
+    sp_b = CSR.fromdense(dense, device="cpu").to_scipy()
+    Sb = torch.sparse_csr_tensor(
+        torch.from_numpy(sp_b.indptr.astype(np.int64)),
+        torch.from_numpy(sp_b.indices.astype(np.int64)),
+        torch.from_numpy(sp_b.data.astype(np.float32)),
+        size=sp_b.shape).to(dev)
+    row("bench spmm_csr/rowlane n=2048 d=0.05 k=32", Pb, Xb, Sb, plain=True)
+    # a pack on the gather walk's side of mm_design's rule
+    sparse = gen_random_dense_sparse(np.random.default_rng(2), 2048, 2048,
+                                     density=0.002)
+    row("n=2048 d=0.002 k=32", pack_sell_rowlane(
+        CSR.fromdense(sparse, device=dev)), Xb, plain=True)
+
+    rdv = tempfile.mkdtemp(prefix="rows_rl_")
+    par.initialize_multihost(f"file://{rdv}/store", 1, 0, device=dev)
+    try:
+        mesh = par.make_mesh()
+        Xd = par.shard_vector(Xs[32], mesh)
+        run = lambda: par.dist_spmm_rowlane(part, Xd, mesh)  # noqa: E731
+        run()
+        emit({"e2e": "dist_spmm_rowlane XL k=32 world 1",
+              "device_ms": ms(run), "wall_ms": wall_ms(run),
+              "local_kernel_ms": ms(lambda: kern(P, Xs[32]))})
+    finally:
+        dist.destroy_process_group()
+
+
 def _bench(dev, emit, **_):
     from sparsematrix_tpu_torch.bench import cli, suite
 
@@ -628,7 +788,7 @@ def _bench(dev, emit, **_):
 
 _RUNS = {"copy": _copy, "octet": _octet, "chain": _chain, "knobs": _knobs,
          "cg": _cg, "fused": _fused, "walk": _walk, "bsr": _bsr, "sb": _sb,
-         "bench": _bench}
+         "rl": _rl, "bench": _bench}
 
 
 if __name__ == "__main__":

@@ -675,6 +675,336 @@ cudaError_t panel(const int* bcols, const int* counts, const void* panels,
   }
 }
 
+// ---------------------------------------------------------------------------
+// row 3: the tile design (blocks of bm >= 32 and bm * bn >= 4096)
+// ---------------------------------------------------------------------------
+
+namespace tile {
+
+constexpr int NT = 256;    // threads: 16 (ty) x 16 (tx)
+constexpr int KC = 16;     // contraction rows a stage
+constexpr int STAGES = 3;  // cp.async ring
+constexpr int ITEM = 8;    // ints an item or a sum of the host plan
+
+// Blocks an SM: the 128 x 128 tile's 64 sums a thread take one block an SM
+// (at two, 128 registers a thread, it spilled); smaller tiles two.  The
+// host plan (kernels/bsr.py tile_plan) cuts its grid to match.
+template <int TR, int TC>
+constexpr int resident() {
+  return TR * TC >= 128 * 128 ? 1 : 2;
+}
+constexpr int kSmemMax = 232448;
+
+template <typename T>
+struct Tile {
+  static constexpr int V = 16 / sizeof(T);      // elements a 16-byte copy
+  static constexpr int AS = KC + V;             // A row stride, 16 B padded
+};
+
+template <typename T, int TR, int TC>
+struct Smem {
+  static constexpr int A = TR * Tile<T>::AS;   // elements of the A chunk
+  static constexpr int STAGE = A + KC * TC;    // A chunk and X chunk
+  static constexpr size_t BYTES = (size_t)STAGES * STAGE * sizeof(T);
+};
+
+// 16 bytes by cp.async, or 16 zero bytes where `ok` is false (src-size 0:
+// nothing is read)
+__device__ __forceinline__ void cp16z(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   bulk::smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2 consecutive staged elements as fp32
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  float a, b;
+  bf16x2(*reinterpret_cast<const unsigned*>(p), a, b);
+  return make_float2(a, b);
+}
+
+// 4 consecutive staged elements as fp32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 h = *reinterpret_cast<const uint2*>(p);
+  float a, b, c, d;
+  bf16x2(h.x, a, b);
+  bf16x2(h.y, c, d);
+  return make_float4(a, b, c, d);
+}
+
+// 4 sums into out[row, col..col+3] (col < nrhs), in out's type
+template <typename T>
+__device__ __forceinline__ void store4(T* out, long long row, int col,
+                                       int nrhs, const float (&v)[4]) {
+  T* o = out + row * nrhs + col;
+  if (nrhs % 4 == 0) {
+    stv<4>(o, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < nrhs) gg::put(o + c, v[c]);
+  }
+}
+
+// Stage `st` of chunk (slot, c0): rows row0 .. row0+TR of block `slot`'s
+// columns c0 .. c0+KC (As[r][kk]), and the X rows indices[slot]*bn + c0
+// .. +KC at columns col0 .. col0+TC (Xs[kk][c]); what lies past the block,
+// ncols or nrhs reads 0.  vec: 16-byte copies (bn and nrhs multiples of
+// V, both operands 16-byte aligned), else element by element.
+template <typename T, int TR, int TC>
+__device__ __forceinline__ void load_stage(T* st, const T* __restrict__ A,
+                                           const T* __restrict__ X,
+                                           const int* __restrict__ indices,
+                                           int slot, int c0, int row0,
+                                           int col0, int bm, int bn,
+                                           int ncols, int nrhs, bool vec) {
+  constexpr int V = Tile<T>::V, AS = Tile<T>::AS;
+  T* As = st;
+  T* Xs = st + Smem<T, TR, TC>::A;
+  const long long ab = (long long)slot * bm * bn;
+  const long long xr0 = (long long)__ldg(indices + slot) * bn + c0;
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int AQ = KC / V;
+    for (int e = tid; e < TR * AQ; e += NT) {
+      const int r = e / AQ, kk = (e - r * AQ) * V;
+      const bool ok = row0 + r < bm && c0 + kk < bn;
+      cp16z(As + r * AS + kk,
+            ok ? A + ab + (long long)(row0 + r) * bn + c0 + kk : A, ok);
+    }
+    constexpr int XQ = TC / V;
+    for (int e = tid; e < KC * XQ; e += NT) {
+      const int kk = e / XQ, c = (e - kk * XQ) * V;
+      const long long xr = xr0 + kk;
+      const bool ok = c0 + kk < bn && xr < ncols && col0 + c < nrhs;
+      cp16z(Xs + kk * TC + c, ok ? X + xr * nrhs + col0 + c : X, ok);
+    }
+  } else {
+    for (int e = tid; e < TR * KC; e += NT) {
+      const int r = e / KC, kk = e - r * KC;
+      As[r * AS + kk] = row0 + r < bm && c0 + kk < bn
+                            ? A[ab + (long long)(row0 + r) * bn + c0 + kk]
+                            : T{};
+    }
+    for (int e = tid; e < KC * TC; e += NT) {
+      const int kk = e / TC, c = e - kk * TC;
+      const long long xr = xr0 + kk;
+      Xs[kk * TC + c] = c0 + kk < bn && xr < ncols && col0 + c < nrhs
+                            ? X[xr * nrhs + col0 + c]
+                            : T{};
+    }
+  }
+}
+
+// items (n_items, ITEM) int32: block-row, row0 (in the block), col0 (of
+// Y), first slot, end slot, partial tile (-1: the item writes Y).  Block b
+// walks items block_ptr[b] .. block_ptr[b+1] (the host balances the
+// blocks' work).  Thread (ty, tx) owns rows ty + 16 i
+// (i < TR / 16) and columns tx*4 .. +3 (and 64 + tx*4 .. +3 where TC =
+// 128) of the item's TR x TC tile.
+template <typename T, int TR, int TC>
+__global__ void __launch_bounds__(NT, (resident<TR, TC>()))
+    bsr_tile(const int* __restrict__ indices, const T* __restrict__ A,
+             const T* __restrict__ X, T* __restrict__ out,
+             float* __restrict__ scratch, const int* __restrict__ items,
+             const int* __restrict__ block_ptr, int nrows, int ncols, int bm,
+             int bn, int nrhs, int vec) {
+  constexpr int RT = TR / 16, CG = TC / 64;  // rows, column groups a thread
+  constexpr int AS = Tile<T>::AS;
+  using S = Smem<T, TR, TC>;
+  extern __shared__ __align__(128) unsigned char sm_raw[];
+  T* sm = reinterpret_cast<T*>(sm_raw);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int cpb = (bn + KC - 1) / KC;  // chunks a block
+  const int it1 = __ldg(block_ptr + blockIdx.x + 1);
+  for (int it = __ldg(block_ptr + blockIdx.x); it < it1; ++it) {
+    const int* item = items + (long long)it * ITEM;
+    const int brow = __ldg(item), row0 = __ldg(item + 1),
+              col0 = __ldg(item + 2), sa = __ldg(item + 3),
+              sb = __ldg(item + 4), dst = __ldg(item + 5);
+    const int n_chunks = (sb - sa) * cpb;
+    auto load = [&](int t) {
+      const int slot = sa + t / cpb, c0 = (t % cpb) * KC;
+      load_stage<T, TR, TC>(sm + (t % STAGES) * S::STAGE, A, X, indices, slot,
+                            c0, row0, col0, bm, bn, ncols, nrhs, vec != 0);
+    };
+    float acc[RT][CG * 4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CG * 4; ++j) acc[i][j] = 0.f;
+    __syncthreads();  // the last item's stages are read
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) {
+      if (t < n_chunks) load(t);
+      commit();
+    }
+    for (int t = 0; t < n_chunks; ++t) {
+      wait<STAGES - 2>();
+      __syncthreads();  // chunk t has landed; chunk t - 1 is read
+      if (t + STAGES - 1 < n_chunks) load(t + STAGES - 1);
+      commit();
+      const T* As = sm + (t % STAGES) * S::STAGE;
+      const T* Xs = As + S::A;
+      // two contraction steps a round: the A values of 2 steps (8-byte
+      // loads) and one X row at a time keep the fragments to 2 RT + 4 CG
+      // registers beside the RT x 4 CG sums (a 4-step round, 4 RT + 4 CG,
+      // held the 128 x 128 tile at 0.256 ms, 38 % of the FMA rate)
+#pragma unroll
+      for (int k2 = 0; k2 < KC; k2 += 2) {
+        float a[RT][2];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float2 q = ld2(As + (ty + 16 * i) * AS + k2);
+          a[i][0] = q.x; a[i][1] = q.y;
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float x[CG * 4];
+#pragma unroll
+          for (int g = 0; g < CG; ++g) {
+            const float4 v = ld4(Xs + (k2 + q) * TC + g * 64 + tx * 4);
+            x[4 * g] = v.x; x[4 * g + 1] = v.y;
+            x[4 * g + 2] = v.z; x[4 * g + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int j = 0; j < CG * 4; ++j)
+              acc[i][j] = fmaf(a[i][q], x[j], acc[i][j]);
+        }
+      }
+    }
+    wait<0>();
+    if (dst < 0) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = row0 + ty + 16 * i;
+        const long long row = (long long)brow * bm + r;
+        if (r >= bm || row >= nrows) continue;
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          const int col = col0 + g * 64 + tx * 4;
+          if (col >= nrhs) continue;
+          const float v[4] = {acc[i][4 * g], acc[i][4 * g + 1],
+                              acc[i][4 * g + 2], acc[i][4 * g + 3]};
+          store4(out, row, col, nrhs, v);
+        }
+      }
+    } else {
+      float* P = scratch + (long long)dst * TR * TC;
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int g = 0; g < CG; ++g)
+          *reinterpret_cast<float4*>(P + (ty + 16 * i) * TC + g * 64 +
+                                     tx * 4) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                          acc[i][4 * g + 2], acc[i][4 * g + 3]);
+    }
+  }
+}
+
+// sums (n_sums, ITEM) int32: block-row, row0, col0, first partial tile,
+// partial count p.  Each tile's p partials are added in chunk order (p =
+// 0, an empty block-row: zeros) and written to Y, so two calls give the
+// same bits.
+template <typename T, int TR, int TC>
+__global__ void __launch_bounds__(NT)
+    bsr_tile_sum(const float* __restrict__ scratch,
+                 const int* __restrict__ sums, T* __restrict__ out,
+                 int nrows, int bm, int nrhs) {
+  const int* s = sums + (long long)blockIdx.x * ITEM;
+  const int brow = __ldg(s), row0 = __ldg(s + 1), col0 = __ldg(s + 2),
+            base = __ldg(s + 3), p = __ldg(s + 4);
+  for (int e = threadIdx.x * 4; e < TR * TC; e += NT * 4) {
+    const int r = e / TC, c = e - r * TC;
+    const long long row = (long long)brow * bm + row0 + r;
+    const int col = col0 + c;
+    if (row0 + r >= bm || row >= nrows || col >= nrhs) continue;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < p; ++j) {
+      const float4 q = __ldcs(reinterpret_cast<const float4*>(
+          scratch + (long long)(base + j) * TR * TC + e));
+      v[0] += q.x; v[1] += q.y; v[2] += q.z; v[3] += q.w;
+    }
+    store4(out, row, col, nrhs, v);
+  }
+}
+
+template <typename T, int TR, int TC>
+cudaError_t run(const int* indices, const void* A, const void* X, void* out,
+                float* scratch, const int* items, const int* block_ptr,
+                int grid, const int* sums, int n_sums, int nrows, int ncols,
+                int bm, int bn, int nrhs, cudaStream_t st) {
+  const T* a = static_cast<const T*>(A);
+  const T* x = static_cast<const T*>(X);
+  T* y = static_cast<T*>(out);
+  constexpr int V = Tile<T>::V;
+  const bool vec = bn % V == 0 && nrhs % V == 0 &&
+                   reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  if (grid > 0) {
+    auto kern = bsr_tile<T, TR, TC>;
+    static thread_local bool ready = false;
+    if (!ready) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (e != cudaSuccess) return e;
+      ready = true;
+    }
+    kern<<<(unsigned)grid, NT, Smem<T, TR, TC>::BYTES, st>>>(
+        indices, a, x, y, scratch, items, block_ptr, nrows, ncols, bm, bn,
+        nrhs, vec ? 1 : 0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_sums > 0)
+    bsr_tile_sum<T, TR, TC><<<(unsigned)n_sums, NT, 0, st>>>(
+        scratch, sums, y, nrows, bm, nrhs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int TR, int TC, const int* indices, const void* A,
+                     const void* X, void* out, float* scratch,
+                     const int* items, const int* block_ptr, int grid,
+                     const int* sums, int n_sums, int nrows, int ncols,
+                     int bm, int bn, int nrhs, cudaStream_t st) {
+#define SPMM_BSR_TILE(R, C)                                                  \
+  if (TR == R && TC == C)                                                    \
+    return run<T, R, C>(indices, A, X, out, scratch, items, block_ptr, grid, \
+                        sums, n_sums, nrows, ncols, bm, bn, nrhs, st);
+  SPMM_BSR_TILE(128, 128)
+  SPMM_BSR_TILE(128, 64)
+  SPMM_BSR_TILE(64, 128)
+  SPMM_BSR_TILE(64, 64)
+  SPMM_BSR_TILE(32, 128)
+  SPMM_BSR_TILE(32, 64)
+#undef SPMM_BSR_TILE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tile
+
 bool bad_shape(int nrows, int nbr, int bm, int bn, int nrhs) {
   return nrows <= 0 || nrhs <= 0 || nbr <= 0 || bm <= 0 || bn <= 0 ||
          (long long)nbr * bm < nrows;
@@ -724,4 +1054,36 @@ extern "C" int spmm_bsr_panel(const void* bcols, const void* counts,
                                            design, V, RT, SC, s)
                     : panel<float>(bc, cn, panels, X, out, nrows, ncols, nbr,
                                    M, bm, bn, nrhs, design, V, RT, SC, s));
+}
+
+// The grouped product's tile design (row 3, blocks of bm >= 32): items
+// (n_items, 8), block_ptr (grid + 1) and sums (n_sums, 8) int32 of
+// kernels/bsr.py tile_plan, `grid` blocks each walking its run of items,
+// TR x TC tiles (TR 32, 64 or 128; TC 64 or 128), scratch (n_partials,
+// TR, TC) fp32; the rest as spmm_bsr.  Two launches: the items, then the
+// sums (each skipped when empty).  Returns the cudaError_t of the
+// launches.
+extern "C" int spmm_bsr_tile(const void* indices, const void* data,
+                             const void* X, int bf16, void* out,
+                             void* scratch, const void* items,
+                             const void* block_ptr, int grid,
+                             const void* sums, int n_sums, int nrows,
+                             int ncols, int bm, int bn, int nrhs, int TR,
+                             int TC, void* stream) {
+  if (nrows <= 0 || nrhs <= 0 || bm <= 0 || bn <= 0 || grid < 0 ||
+      n_sums < 0)
+    return (int)cudaErrorInvalidValue;
+  const auto* ind = static_cast<const int*>(indices);
+  auto* sc = static_cast<float*>(scratch);
+  const auto* it = static_cast<const int*>(items);
+  const auto* bp = static_cast<const int*>(block_ptr);
+  const auto* su = static_cast<const int*>(sums);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return (int)tile::dispatch<__nv_bfloat16>(TR, TC, ind, data, X, out, sc,
+                                              it, bp, grid, su, n_sums, nrows,
+                                              ncols, bm, bn, nrhs, s);
+  return (int)tile::dispatch<float>(TR, TC, ind, data, X, out, sc, it, bp,
+                                    grid, su, n_sums, nrows, ncols, bm, bn,
+                                    nrhs, s);
 }

@@ -23,6 +23,17 @@ where k >= 32 and bn % 8 == 0.  Both walk each block-row's slots only up
 to its last one that holds a nonzero value (``panel_counts``): the panel
 layout pads every block-row to the longest one's M slots.
 
+The grouped kernel has two designs too, picked by ``grouped_design``:
+blocks of bm >= 32 (the ones ``spmm`` sends it, bm·bn >= 4096) take the
+tile design, a register-blocked fp32 product of up to 128 rows of a
+block-row by 128 (or 64) columns of Y, its contraction streamed by
+``cp.async`` from the block and the X row-block it names; the host cuts
+each block-row's slot list into chunks of about equal work
+(``tile_plan``), chunks of a split block-row write fp32 partial tiles
+that a second kernel sums in chunk order, so two calls give the same
+bits.  Smaller blocks (the bench's (8, 8), odd blocks, more than 64
+blocks a block-row) keep the first design, the Blocked-ELL skeleton.
+
 Each kernel has a plain PyTorch version beside it; on CPU tensors the
 wrapper runs it, on CUDA tensors it launches the kernel or raises.
 ``spmm_bsr`` is differentiable in the stored blocks and in ``X``, with the
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import heapq
 from typing import Tuple
 
 import numpy as np
@@ -46,8 +58,9 @@ from ..formats.base import (cached_on, sparse_container, static_field,
 from ..formats.bsr import BSR
 from . import _build
 
-__all__ = ["BSRPanels", "PanelPlan", "pack_bsr_panels", "panel_counts",
-           "panel_plan",
+__all__ = ["BSRPanels", "PanelPlan", "TilePlan", "pack_bsr_panels",
+           "panel_counts", "panel_plan", "tile_plan", "tile_plan_plain",
+           "grouped_design",
            "spmm_bsr",
            "spmm_bsr_grouped_reference", "spmm_bsr_panel_reference",
            "small_blocks", "takes_kernel"]
@@ -65,6 +78,27 @@ _GROUPED_ARGTYPES = (
     ctypes.c_int,  # bm
     ctypes.c_int,  # bn
     ctypes.c_int,  # nrhs
+    ctypes.c_void_p,  # stream
+)
+_TILE_ARGTYPES = (
+    ctypes.c_void_p,  # indices (cap,) int32
+    ctypes.c_void_p,  # data (cap, bm, bn)
+    ctypes.c_void_p,  # X (ncols, nrhs) row-major
+    ctypes.c_int,  # bf16
+    ctypes.c_void_p,  # out (nrows, nrhs)
+    ctypes.c_void_p,  # scratch (n_partials, TR, TC) fp32
+    ctypes.c_void_p,  # items (n_items, 8) int32
+    ctypes.c_void_p,  # block_ptr (grid + 1,) int32: each block's items
+    ctypes.c_int,  # grid
+    ctypes.c_void_p,  # sums (n_sums, 8) int32
+    ctypes.c_int,  # n_sums
+    ctypes.c_int,  # nrows
+    ctypes.c_int,  # ncols
+    ctypes.c_int,  # bm
+    ctypes.c_int,  # bn
+    ctypes.c_int,  # nrhs
+    ctypes.c_int,  # TR: rows a tile
+    ctypes.c_int,  # TC: columns a tile
     ctypes.c_void_p,  # stream
 )
 _PANEL_ARGTYPES = (
@@ -222,8 +256,177 @@ def _launch(name: str, counter: str, argtypes, args, out: torch.Tensor):
     return out
 
 
-def _spmm_bsr_cuda(A: BSR, X: torch.Tensor) -> torch.Tensor:
-    """The grouped kernel (row 3)."""
+# ---------------------------------------------------------------------------
+# row 3: the grouped kernel's designs
+# ---------------------------------------------------------------------------
+
+GROUPED_DESIGNS = ("tile", "skeleton")
+_TILE_MIN_BM = 32
+_TILE_ITEMS_PER_SM = 4  # the plan's target: items an SM
+
+
+def _tile_resident(TR: int, TC: int) -> int:
+    """Tile blocks an SM (``resident`` in ``csrc/spmm_bsr.cu``): one for
+    the 128 x 128 tile, whose 64 sums a thread spill at two, else two."""
+    return 1 if TR * TC >= 128 * 128 else 2
+
+
+def grouped_design(A: BSR) -> str:
+    """The grouped kernel's design for ``A``: ``"tile"`` for large blocks
+    of at least 32 rows (bm·bn >= 4096, the ones ``spmm`` sends it), else
+    ``"skeleton"`` (the first design, kept for the by-name calls on small
+    or narrow blocks)."""
+    bm, _ = A.block_shape
+    return ("tile" if not small_blocks(A) and bm >= _TILE_MIN_BM
+            else "skeleton")
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The tile design's launch for ``k`` columns of X.  Tiles of ``TR``
+    rows of a block-row by ``TC`` columns of Y; each block-row's slot list
+    cut into chunks of at most ``split`` blocks, as equal as they come.
+    ``items`` (n_items, 8) int32: (block-row, row0, col0, first slot, end
+    slot, partial tile or -1, 0, 0); an item of a block-row of one chunk
+    writes Y (-1), the others write their partial tile.  Block b of the
+    ``grid`` walks items ``block_ptr[b]`` .. ``block_ptr[b+1]``: the items,
+    largest first, each given to the block with the least work so far
+    (the blocks the card holds at once: one an SM at 128 x 128, else
+    two).  ``sums`` (n_sums, 8) int32: (block-row, row0,
+    col0, first partial tile, partials, 0, 0, 0) of every tile of a
+    block-row of several chunks or none (an empty block-row: zeros), its
+    partials in chunk order."""
+
+    TR: int
+    TC: int
+    split: int
+    items: torch.Tensor
+    sums: torch.Tensor
+    n_partials: int
+    block_ptr: torch.Tensor
+    grid: int
+
+
+def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
+    bm, _ = A.block_shape
+    nbr = A.num_block_rows
+    TR = next(t for t in (32, 64, 128) if t >= min(bm, 128))
+    TC = 64 if k <= 64 else 128
+    rts = np.arange(0, bm, TR)
+    cts = np.arange(0, k, TC)
+    indptr = A.indptr.cpu().numpy().astype(np.int64)
+    cnt = np.diff(indptr)
+    tiles = len(rts) * len(cts)
+    if not split:
+        # about _TILE_ITEMS_PER_SM items an SM over the whole product
+        split = max(1, -(-int(cnt.sum()) * tiles
+                          // (_TILE_ITEMS_PER_SM * sms)))
+    parts = -(-cnt // split)  # chunks a block-row (0: empty)
+    items, sums = [], []
+    n_partials = 0
+    for i in np.flatnonzero(parts != 1):  # partial tiles, then the sums
+        p = int(parts[i])
+        for r0 in rts:
+            for c0 in cts:
+                sums.append((i, r0, c0, n_partials, p, 0, 0, 0))
+                for j in range(p):
+                    a = indptr[i] + (cnt[i] * j) // p
+                    b = indptr[i] + (cnt[i] * (j + 1)) // p
+                    items.append((i, r0, c0, a, b, n_partials + j, 0, 0))
+                n_partials += p
+    for i in np.flatnonzero(parts == 1):
+        for r0 in rts:
+            for c0 in cts:
+                items.append((i, r0, c0, indptr[i], indptr[i + 1], -1, 0, 0))
+    items = np.array(items, np.int64).reshape(-1, 8)
+    items = items[np.argsort(items[:, 3] - items[:, 4], kind="stable")]
+    grid = min(len(items), _tile_resident(TR, TC) * sms)
+    # largest first, each item to the block with the least work so far
+    heap = [(0, b) for b in range(grid)]
+    owner = np.empty(len(items), np.int64)
+    for n, size in enumerate(items[:, 4] - items[:, 3]):
+        load, b = heapq.heappop(heap)
+        owner[n] = b
+        heapq.heappush(heap, (load + int(size), b))
+    order = np.argsort(owner, kind="stable")
+    items = items[order]
+    block_ptr = np.searchsorted(owner[order], np.arange(grid + 1))
+    sums = np.array(sums, np.int64).reshape(-1, 8)
+    dev = A.data.device
+    return TilePlan(
+        TR=TR, TC=TC, split=split,
+        items=torch.from_numpy(items.astype(np.int32)).to(dev),
+        sums=torch.from_numpy(sums.astype(np.int32)).to(dev),
+        n_partials=n_partials,
+        block_ptr=torch.from_numpy(block_ptr.astype(np.int32)).to(dev),
+        grid=grid)
+
+
+_TILE_PLANS: dict = {}
+
+
+def tile_plan(A: BSR, k: int, split: int = 0) -> TilePlan:
+    """The tile design's plan of ``A`` for ``k`` columns of X, ``split``
+    the most blocks a chunk (0: the rule, about 4 items an SM); built once
+    a container, state of its block index (``values_version`` of
+    ``indptr``), k's tile width and split."""
+    plans = cached_on(_TILE_PLANS, A, lambda _: {},
+                      values_version(A.indptr))
+    dev = A.data.device
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else _SMS)
+    key = (64 if k <= 64 else 128, -(-k // 128), split, sms)
+    if key not in plans:
+        plans[key] = _tile_plan_build(A, k, split, sms)
+    return plans[key]
+
+
+def tile_plan_plain(A: BSR, X: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """The tile design's result read off its plan on any device: each
+    item's blocks times their X row-blocks summed in slot order into its
+    tile (Y, or its partial tile), then each sum's partials added in chunk
+    order; fp32 sums, Y in X's type.  Equal to
+    ``spmm_bsr_grouped_reference`` up to the order of the fp32 sums."""
+    bm, bn = A.block_shape
+    nbr = A.num_block_rows
+    k = X.shape[1]
+    TR, TC = plan.TR, plan.TC
+    nbc = -(-A.shape[1] // bn)
+    Xb = _x_blocks(X, bn, nbc, torch.float32)
+    rows = -(-bm // TR) * TR
+    Y = torch.zeros((nbr, rows, -(-k // TC) * TC), dtype=torch.float32,
+                    device=X.device)
+    parts = torch.zeros((max(plan.n_partials, 1), TR, TC),
+                        dtype=torch.float32, device=X.device)
+    data = A.data.float()
+    for i, r0, c0, a, b, dst, _, _ in plan.items.cpu().tolist():
+        tile = torch.zeros((TR, TC), dtype=torch.float32, device=X.device)
+        for s in range(a, b):
+            blk = torch.zeros((TR, bn), dtype=torch.float32, device=X.device)
+            blk[: min(TR, bm - r0)] = data[s, r0: r0 + TR]
+            xs = torch.zeros((bn, TC), dtype=torch.float32, device=X.device)
+            xc = Xb[int(A.indices[s])][:, c0: c0 + TC]
+            xs[:, : xc.shape[1]] = xc
+            tile += blk @ xs
+        if dst < 0:
+            Y[i, r0: r0 + TR, c0: c0 + TC] = tile
+        else:
+            parts[dst] = tile
+    for i, r0, c0, base, p, _, _, _ in plan.sums.cpu().tolist():
+        tile = torch.zeros((TR, TC), dtype=torch.float32, device=X.device)
+        for j in range(p):
+            tile += parts[base + j]
+        Y[i, r0: r0 + TR, c0: c0 + TC] = tile
+    Y = Y[:, :bm, :k].reshape(nbr * bm, k)[: A.shape[0]]
+    return Y.to(_acc_types(A.data.dtype, X.dtype)[0])
+
+
+def _spmm_bsr_cuda(A: BSR, X: torch.Tensor, *, design: str = "",
+                   split: int = 0) -> torch.Tensor:
+    """The grouped kernel (row 3) in ``grouped_design(A)``'s design;
+    ``design`` ("tile" or "skeleton") and ``split`` (the tile plan's most
+    blocks a chunk, 0 the rule's) are forced for measurements and
+    tests."""
     X = _check_inputs("spmm_bsr", A.data, A.indices, X, A.shape[1])
     bm, bn = A.block_shape
     nbr = A.num_block_rows
@@ -232,13 +435,26 @@ def _spmm_bsr_cuda(A: BSR, X: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spmm_bsr: indptr {A.indptr.dtype} or blocks "
                          f"{tuple(A.data.shape)} do not match block shape "
                          f"{A.block_shape} and matrix {A.shape}")
+    if design not in ("",) + GROUPED_DESIGNS:
+        raise ValueError(f"spmm_bsr: design must be one of "
+                         f"{GROUPED_DESIGNS}, not {design!r}")
     out = torch.empty((A.shape[0], X.shape[1]), dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
-    return _launch("spmm_bsr", "spmm_bsr", _GROUPED_ARGTYPES, (
-        A.indptr.data_ptr(), A.indices.data_ptr(), A.data.data_ptr(),
-        X.data_ptr(), int(X.dtype == torch.bfloat16), out.data_ptr(),
-        A.shape[0], A.shape[1], nbr, bm, bn, X.shape[1]), out)
+    if (design or grouped_design(A)) == "skeleton":
+        return _launch("spmm_bsr", "spmm_bsr", _GROUPED_ARGTYPES, (
+            A.indptr.data_ptr(), A.indices.data_ptr(), A.data.data_ptr(),
+            X.data_ptr(), int(X.dtype == torch.bfloat16), out.data_ptr(),
+            A.shape[0], A.shape[1], nbr, bm, bn, X.shape[1]), out)
+    plan = tile_plan(A, X.shape[1], split)
+    scratch = torch.empty((max(plan.n_partials, 1), plan.TR, plan.TC),
+                          dtype=torch.float32, device=X.device)
+    return _launch("spmm_bsr_tile", "spmm_bsr", _TILE_ARGTYPES, (
+        A.indices.data_ptr(), A.data.data_ptr(), X.data_ptr(),
+        int(X.dtype == torch.bfloat16), out.data_ptr(), scratch.data_ptr(),
+        plan.items.data_ptr(), plan.block_ptr.data_ptr(), plan.grid,
+        plan.sums.data_ptr(), plan.sums.shape[0], A.shape[0], A.shape[1],
+        bm, bn, X.shape[1], plan.TR, plan.TC), out)
 
 
 # the panel kernel's designs (csrc/spmm_bsr.cu): a thread a (row, column

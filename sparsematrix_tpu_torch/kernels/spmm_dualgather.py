@@ -131,23 +131,21 @@ def _share(wlen: np.ndarray, total: int) -> np.ndarray:
     return np.minimum(per, wlen)
 
 
-def _slab_walk_build(packed: DualGather, step: int,
-                     spb: int = 0) -> SlabWalk:
-    s, tile, win = _walk_items(packed)
-    teams = _TEAMS[step]
-    sms = _sms(packed.vals.device)
+def window_cut(s: np.ndarray, tile: np.ndarray, win: np.ndarray,
+               teams: int, sms: int, spb: int = 0):
+    """A walk window by window: the slabs ``s`` (with their ``tile`` and
+    window word ``win``, int64) ordered by window, then tile, then slab,
+    and cut into blocks each inside one window: about ``spb`` slabs a
+    block, or (``spb`` 0) about ``sms`` blocks shared among the windows
+    by their slabs (``_share``); each block's slabs cut into ``teams``
+    parts of equal counts.  Returns (items (n, 4) int32 of (slab, tile,
+    window, 0), part_ptr (n_blocks·teams + 1,) int32, n_blocks)."""
     n = len(s)
     if n == 0:
         block_of = s
-    elif step == 1:
-        # contiguous slabs a block, as the first design cut them
-        spb = spb or int(np.clip(-(-n // (8 * sms)), 1, 16))
-        block_of = np.arange(n) // spb
     else:
         order = np.lexsort((s, tile, win))
         s, tile, win = s[order], tile[order], win[order]
-        # blocks within one window each: about spb slabs a block, or one
-        # block an SM shared among the windows
         wstart = np.r_[0, np.flatnonzero(np.diff(win)) + 1]
         wlen = np.diff(np.r_[wstart, n])
         wid = np.repeat(np.arange(len(wlen)), wlen)
@@ -156,17 +154,39 @@ def _slab_walk_build(packed: DualGather, step: int,
         sz = -(-wlen // per)
         block_of = (np.r_[0, np.cumsum(per)][wid]
                     + (np.arange(n) - first) // sz[wid])
+    return _team_parts(s, tile, win, block_of, teams)
+
+
+def _team_parts(s, tile, win, block_of, teams):
+    n = len(s)
     n_blocks = int(block_of[-1]) + 1 if n else 0
     bstart = np.searchsorted(block_of, np.arange(n_blocks + 1))
     # each block's slabs cut into `teams` parts of equal counts
     q = np.arange(teams + 1)
     cnt = np.diff(bstart)
     part = (bstart[:-1, None] + (cnt[:, None] * q[None, :]) // teams)
-    part_ptr = np.r_[part[:, :-1].reshape(-1), n]
+    part_ptr = np.r_[part[:, :-1].reshape(-1), n].astype(np.int32)
     items = np.stack([s, tile, win, np.zeros_like(s)], 1).astype(np.int32)
+    return items, part_ptr, n_blocks
+
+
+def _slab_walk_build(packed: DualGather, step: int,
+                     spb: int = 0) -> SlabWalk:
+    s, tile, win = _walk_items(packed)
+    teams = _TEAMS[step]
+    sms = _sms(packed.vals.device)
+    if step == 1:
+        # contiguous slabs a block, as the first design cut them
+        spb = spb or int(np.clip(-(-len(s) // (8 * sms)), 1, 16))
+        items, part_ptr, n_blocks = _team_parts(
+            s, tile, win, np.arange(len(s)) // spb, teams)
+    else:
+        # blocks within one window each: about spb slabs a block, or one
+        # block an SM shared among the windows
+        items, part_ptr, n_blocks = window_cut(s, tile, win, teams, sms, spb)
     dev = packed.vals.device
     return SlabWalk(items=torch.from_numpy(items).to(dev),
-                    part_ptr=torch.from_numpy(part_ptr.astype(np.int32)).to(dev),
+                    part_ptr=torch.from_numpy(part_ptr).to(dev),
                     n_blocks=n_blocks, teams=teams)
 
 

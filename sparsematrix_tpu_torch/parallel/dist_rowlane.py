@@ -148,7 +148,7 @@ def dist_spmm_rowlane(part: PartitionedRowLane, X, mesh: Mesh,
                       axis_name: str = "shard"):
     """``Y = A @ X`` (k dense columns): this rank's X row band in, its
     ``band_rows`` rows of Y (fp32) out; the local product on the row-lane
-    SpMM kernel (``spmm_rowlane``, table row 8)."""
-    p = shard_partitioned(part, mesh, axis_name)
+    SpMM kernel (``spmm_rowlane``, table row 8), on the local pack
+    ``dist_spmv_rowlane`` keeps (so its window walk is built once)."""
     X_full = mesh.all_gather(X, axis_name)[: part.shape[1]]
-    return spmm_rowlane(local_sell(part, p), X_full)
+    return spmm_rowlane(_local_sell_of(part, mesh, axis_name), X_full)

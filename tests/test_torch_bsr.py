@@ -18,6 +18,12 @@ The same seeded numpy fixture goes through both packages:
 - ``spmm_bsr``'s backward pass against ``jax.vjp`` of the JAX
   ``spmm_bsr``, padding slots' block gradients zero.
 
+The grouped kernel's tile design has a host plan (``tile_plan``): it is
+held against the block-rows' slot lists (every stored block once, in slot
+order, an empty block-row no item) and its plain walk (partials summed in
+chunk order) against the grouped plain version; these make no JAX
+comparison.
+
 The kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
@@ -524,3 +530,101 @@ def test_cpu_bsr_launches_nothing():
     smt.spmm_bsr(port, torch.ones((64, 4)))
     smt.spmv(port, torch.ones(64))
     assert sum(_build.launch_counts.values()) == 0
+
+
+# -- the grouped kernel's tile plan ------------------------------------------
+
+def tile_case(block, k, capacity=True):
+    """A BSR of ``block`` with a ragged last block-row, an empty block-row
+    (1), capacity padding and X rows past ncols; and X of k columns."""
+    bm, bn = block
+    shape = (5 * bm - 3, 6 * bn - 5)
+    dense = block_dense(sum(block) + k, shape, block, 0.5, empty_rows=(1,))
+    A = tf.csr_to_bsr(tf.CSR.fromdense(dense, device=CPU), block,
+                      block_capacity=None)
+    if capacity:
+        A = tf.csr_to_bsr(tf.CSR.fromdense(dense, device=CPU), block,
+                          block_capacity=A.num_blocks + 3)
+    X = torch.from_numpy(rhs(k, shape[1], k))
+    return dense, A, X
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 100])
+@pytest.mark.parametrize("block,k", [((128, 128), 129), ((64, 64), 33),
+                                     ((32, 128), 1)])
+def test_tile_plan_covers_every_block_once(block, k, split):
+    """Each tile's items cover its block-row's stored blocks once, in slot
+    order, in chunks of at most ``split``; a split block-row's chunks
+    write consecutive partial tiles that its sum adds in chunk order; an
+    empty block-row gets no item and a sum of none; summing the partials
+    equals the grouped plain version and fp64."""
+    dense, A, X = tile_case(block, k)
+    plan = tbp.tile_plan(A, k, split)
+    bm, _ = block
+    assert plan.TR == min(bm, 128) and plan.TC == (64 if k <= 64 else 128)
+    indptr = A.indptr.numpy()
+    items = plan.items.numpy()
+    sums = {tuple(r[:3]): (r[3], r[4]) for r in plan.sums.numpy()}
+    assert len(sums) == len(plan.sums)
+    tiles = [(r0, c0) for r0 in range(0, bm, plan.TR)
+             for c0 in range(0, k, plan.TC)]
+    seen_partials = []
+    for i in range(A.num_block_rows):
+        for r0, c0 in tiles:
+            mine = items[(items[:, 0] == i) & (items[:, 1] == r0)
+                         & (items[:, 2] == c0)]
+            mine = mine[np.argsort(mine[:, 3])]
+            n = indptr[i + 1] - indptr[i]
+            if n == 0:
+                assert len(mine) == 0 and sums[(i, r0, c0)][1] == 0
+                continue
+            # slot order, each block once, no chunk above split
+            assert mine[0, 3] == indptr[i] and mine[-1, 4] == indptr[i + 1]
+            np.testing.assert_array_equal(mine[1:, 3], mine[:-1, 4])
+            assert np.all(mine[:, 4] > mine[:, 3])
+            if split:
+                assert np.all(mine[:, 4] - mine[:, 3] <= split)
+            if len(mine) == 1:
+                assert mine[0, 5] == -1 and (i, r0, c0) not in sums
+            else:
+                base, p = sums[(i, r0, c0)]
+                assert p == len(mine)
+                np.testing.assert_array_equal(mine[:, 5],
+                                              base + np.arange(p))
+                seen_partials += mine[:, 5].tolist()
+    assert sorted(seen_partials) == list(range(plan.n_partials))
+    # every item in one block's run; no block's work above the least
+    # loaded block's by more than the largest item
+    ptr = plan.block_ptr.numpy()
+    resident = 1 if plan.TR * plan.TC == 128 * 128 else 2
+    assert 1 <= plan.grid <= resident * 132 and len(ptr) == plan.grid + 1
+    assert ptr[0] == 0 and ptr[-1] == len(items) and np.all(np.diff(ptr) > 0)
+    size = items[:, 4] - items[:, 3]
+    load = np.add.reduceat(size, ptr[:-1])
+    assert load.max() - load.min() <= size.max()
+    got = tbp.tile_plan_plain(A, X, plan)
+    want = tbp.spmm_bsr_grouped_reference(A, X)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), dense.astype(np.float64)
+                               @ X.double().numpy(), **TOL)
+    assert not got[bm: 2 * bm].any()
+
+
+def test_tile_plan_bf16_and_rule():
+    """bf16 blocks and X: the plan's walk rounds once, as the grouped
+    plain version; ``grouped_design`` takes the tile design for blocks of
+    bm >= 32 and bm·bn >= 4096 only."""
+    dense, A, X = tile_case((64, 64), 40, capacity=False)
+    A16, X16 = A.astype(torch.bfloat16), X.to(torch.bfloat16)
+    got = tbp.tile_plan_plain(A16, X16, tbp.tile_plan(A16, 40, 2))
+    want = tbp.spmm_bsr_grouped_reference(A16, X16)
+    assert got.dtype == torch.bfloat16
+    assert quantized_check(got.double().numpy(), want.double().numpy())
+    for block, design in [((128, 128), "tile"), ((64, 64), "tile"),
+                          ((32, 128), "tile"), ((16, 256), "skeleton"),
+                          ((32, 64), "skeleton"), ((8, 8), "skeleton")]:
+        d = block_dense(3, (4 * block[0], 4 * block[1]), block, 0.5)
+        B = tf.csr_to_bsr(tf.CSR.fromdense(d, device=CPU), block)
+        assert tbp.grouped_design(B) == design, block
+

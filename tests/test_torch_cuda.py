@@ -1920,6 +1920,41 @@ def test_bsr_panel_shapes(dev, shape, design):
                           dense.astype(np.float64) @ X.double().cpu().numpy())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 33, 128, 129, 256])
+@pytest.mark.parametrize("block", [(128, 128), (64, 64), (32, 128)],
+                         ids=lambda b: f"b{b[0]}x{b[1]}")
+def test_bsr_tile_design(dev, block, k, dtype):
+    """Row 3's tile design on a BSR with a ragged last block-row, an empty
+    block-row, capacity padding and X rows past ncols, at the plan's split
+    and at splits 1 and 2 (every block a chunk: partials summed by the
+    second kernel) and 1000 (no split): against the plain version and
+    fp64, bit-equal from call to call."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    bm, bn = block
+    shape = (5 * bm - 3, 6 * bn - 5)
+    dense, A = _bsr_case(sum(block) + k, shape, block, 0.5, dev, None, 1)
+    _, A = _bsr_case(sum(block) + k, shape, block, 0.5, dev,
+                     A.num_blocks + 7, 1)
+    A = A.astype(dtype)
+    assert kb.grouped_design(A) == "tile"
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(k),
+                                           shape[1], k)).to(dev, dtype)
+    want = kb.spmm_bsr_grouped_reference(A, X)
+    check = quantized_check if dtype == torch.bfloat16 else relative_check
+    want64 = dense.astype(np.float64) @ X.double().cpu().numpy()
+    for split in (0, 1, 2, 1000):
+        _build.launch_counts.clear()
+        Y = kb._spmm_bsr_cuda(A, X, split=split)
+        assert _build.launch_counts["spmm_bsr"] == 1
+        assert_kernel_close(Y, want)
+        assert check(Y.double().cpu().numpy(), want64)
+        assert float(Y[bm: 2 * bm].abs().max()) == 0.0
+        assert torch.equal(Y, kb._spmm_bsr_cuda(A, X, split=split)), split
+    assert_kernel_close(kb._spmm_bsr_cuda(A, X, design="skeleton"), want)
+
+
 def test_bsr_gradients_on_card(dev):
     """``spmm_bsr``'s backward pass on the card: fp64 ``denseᵀ @ g`` and
     ``g @ Xᵀ`` on the stored blocks, padding slots' gradients zero."""
@@ -2030,6 +2065,76 @@ def test_rowlane_spmm_kernel(dev, name, k, vdt, xdt):
     assert_kernel_close(got, spmm_rowlane_reference(P, X))
     if name == "untouched":
         assert not bool(got[128:256].any())
+
+
+def _rowlane_mm_windows(dev, vdt=torch.float32):
+    """A pack of four row tiles (the second untouched) over five column
+    windows, and its dense matrix."""
+    rng = np.random.default_rng(21)
+    dense = gen_random_dense_sparse(rng, 500, 4700, density=0.02)
+    dense[128:256] = 0
+    return dense, pack_sell_rowlane(CSR.fromdense(dense, device=dev),
+                                    group=4, dtype=vdt)
+
+
+@pytest.mark.parametrize("design", ["window", "gather"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 70])
+def test_rowlane_spmm_designs(dev, k, vdt, xdt, design):
+    """Row 8's two walks, each forced, on a pack of several windows and
+    tiles: against the plain version, fp64 (of the bf16-rounded values and
+    X where they are bf16), and the untouched tile zero."""
+    rmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_rowlane")
+    dense, P = _rowlane_mm_windows(dev, vdt)
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (dense.shape[1], k)).astype(np.float32)).to(dev, xdt)
+    _build.launch_counts.clear()
+    got = rmod._spmm_rowlane_cuda(P, X, design=design)
+    assert _build.launch_counts["spmm_rowlane"] == 1
+    assert_kernel_close(got, rmod.spmm_rowlane_reference(P, X))
+    assert not bool(got[128:256].any())
+    d64 = torch.from_numpy(dense).to(vdt).double().numpy()
+    assert relative_check(got.double().cpu().numpy(),
+                          d64 @ X.double().cpu().numpy())
+
+
+@pytest.mark.parametrize("design", ["window", "gather"])
+def test_rowlane_spmm_inf_under_zero_value(dev, design):
+    """An inf of X under the zero values of padding slots (the X row
+    padding slots name, which no stored entry names) gives the product of
+    the stored entries on the card, where the plain version gives NaN."""
+    rmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_rowlane")
+    dense, _ = _rowlane_mm_windows(dev)
+    dense[:, 1024 + 128] = 0  # window 1, sublane 1, lane 0: padding's row
+    P = pack_sell_rowlane(CSR.fromdense(dense, device=dev), group=4)
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (dense.shape[1], 32)).astype(np.float32)).to(dev)
+    want = rmod._spmm_rowlane_cuda(P, X, design=design)
+    X[1024 + 128] = float("inf")
+    assert not bool(torch.isfinite(rmod.spmm_rowlane_reference(P, X)).all())
+    got = rmod._spmm_rowlane_cuda(P, X, design=design)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert_kernel_close(got, want)
+
+
+def test_rowlane_spmm_gather_parts(dev):
+    """The gather walk's ablations launch: part 1 (no X read, the panel
+    takes the value) is the product with X all ones; parts 2 and 3 store
+    nothing."""
+    rmod = importlib.import_module(
+        "sparsematrix_tpu_torch.kernels.spmm_rowlane")
+    dense, P = _rowlane_mm_windows(dev)
+    X = torch.randn((dense.shape[1], 40), device=dev)
+    assert_kernel_close(rmod._spmm_rowlane_cuda(P, X, parts=1),
+                        rmod.spmm_rowlane_reference(P, torch.ones_like(X)))
+    for part in (2, 3):
+        assert not bool(rmod._spmm_rowlane_cuda(P, X, parts=part).any())
+    with pytest.raises(ValueError, match="parts"):
+        rmod._spmm_rowlane_cuda(P, X, design="window", parts=1)
 
 
 @pytest.fixture

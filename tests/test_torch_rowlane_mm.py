@@ -9,6 +9,12 @@ the oracle of its bf16-rounded values) and fp32 and bf16 X; and, in the
 cases marked ``jax`` (one a shape class: the Pallas kernel in interpret
 mode compiles for seconds a case), with the JAX ``spmm_rowlane`` at the
 same tolerance.
+
+The card kernel's window walk (``rowlane_mm_walk``) is held against a
+numpy rebuild: it lists every slab that holds a value once, window by
+window and tile by tile, its ranges cover it, its sum equals the
+product, and an in-place write into the values builds it anew.  These
+make no JAX comparison.
 """
 import dataclasses
 import functools
@@ -25,7 +31,8 @@ from sparsematrix_tpu.kernels.spmm_rowlane import spmm_rowlane as jax_spmm
 from sparsematrix_tpu.kernels.spmv_rowlane import pack_sell_rowlane as jpack
 from sparsematrix_tpu_torch.kernels import _build
 from sparsematrix_tpu_torch.kernels.spmm_rowlane import (
-    spmm_rowlane, spmm_rowlane_reference)
+    mm_design, rowlane_mm_walk, rowlane_mm_walk_plain, spmm_rowlane,
+    spmm_rowlane_reference)
 from sparsematrix_tpu_torch.utils.testutils import gen_random_dense_sparse
 
 TOL = dict(rtol=2e-3, atol=0.5)
@@ -40,6 +47,10 @@ def matrix(name):
     if name == "untouched":
         # three row tiles, the middle one (rows 128..255) empty
         dense = gen_random_dense_sparse(rng, 300, 1100, density=0.03)
+        dense[128:256] = 0
+    elif name == "windows":
+        # four row tiles (the second empty) over five column windows
+        dense = gen_random_dense_sparse(rng, 500, 4700, density=0.02)
         dense[128:256] = 0
     else:
         shape, density = SHAPES[name]
@@ -157,3 +168,83 @@ def test_refuses_spilled_pack():
     assert pk.spill is not None and pk.spill.nnz
     with pytest.raises(ValueError, match="spilled"):
         spmm_rowlane(pk, torch.zeros((256, 4)))
+
+
+def walk_rebuild(pk):
+    """(slab, tile, window) of the slabs holding a value, ordered by
+    window, tile and slab: the walk's items rebuilt in numpy."""
+    vals = pk.vals.float().numpy().reshape(pk.n_slabs, -1)
+    s = np.flatnonzero((vals != 0).any(1))
+    tile = np.repeat(pk.group_tile.numpy(), pk.group)[s]
+    win = pk.slab_win.numpy().reshape(-1)[s]
+    order = np.lexsort((s, tile, win))
+    return np.stack([s[order], tile[order], win[order]], 1)
+
+
+@pytest.mark.parametrize("name", ["windows", "untouched", "96x1024"])
+def test_window_walk_lists_each_held_slab_once(name):
+    """The walk lists every slab that holds a value once, window by
+    window and tile by tile; its blocks lie inside one window each and its
+    team ranges cover it in order; its sum is the product."""
+    sp = matrix(name)
+    pk = port_pack(sp)
+    walk = rowlane_mm_walk(pk)
+    items = walk.items.numpy()
+    np.testing.assert_array_equal(items[:, :3], walk_rebuild(pk))
+    assert not items[:, 3].any()
+    ptr = walk.part_ptr.numpy()
+    assert ptr[0] == 0 and ptr[-1] == len(items)
+    assert np.all(np.diff(ptr) >= 0)
+    assert len(ptr) == walk.n_blocks * walk.teams + 1
+    assert walk.n_blocks <= 132
+    for b in range(walk.n_blocks):
+        wins = items[ptr[b * walk.teams]: ptr[(b + 1) * walk.teams], 2]
+        assert len(wins) and len(set(wins.tolist())) == 1
+    assert walk.nnz == sp.nnz
+    X = rhs(sp.shape[1], 5)
+    got = rowlane_mm_walk_plain(pk, torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(
+        got, spmm_rowlane_reference(pk, torch.from_numpy(X)).numpy(),
+        rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got, sp.astype(np.float64) @ X, **TOL)
+
+
+def test_window_walk_rebuilt_after_value_write():
+    """An in-place write of a value into a slab that held none (a padding
+    slab) adds it to the walk at the next call; the walk is cached
+    until then."""
+    sp = matrix("windows")
+    pk = port_pack(sp)
+    walk = rowlane_mm_walk(pk)
+    assert rowlane_mm_walk(pk) is walk
+    vals = pk.vals.reshape(pk.n_slabs, -1)
+    empty = int(np.flatnonzero(~(vals != 0).any(1).numpy())[0])
+    vals[empty, 5] = 3.0
+    walk2 = rowlane_mm_walk(pk)
+    assert walk2 is not walk
+    assert len(walk2.items) == len(walk.items) + 1
+    assert empty in set(walk2.items[:, 0].tolist())
+    np.testing.assert_array_equal(walk2.items[:, :3].numpy(),
+                                  walk_rebuild(pk))
+    X = torch.from_numpy(rhs(sp.shape[1], 3))
+    np.testing.assert_allclose(rowlane_mm_walk_plain(pk, X).numpy(),
+                               spmm_rowlane_reference(pk, X).numpy(),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_mm_design_rule():
+    """The gather walk where it reads fewer X elements than the window
+    walk would stage (1024 rows of a panel a block), else the window
+    walk."""
+    pk = port_pack(matrix("windows"))
+    walk = rowlane_mm_walk(pk)
+    for k in (1, 8, 16, 32, 33, 64):
+        kp = 8 if k <= 8 else 16 if k <= 16 else 32
+        staged = walk.n_blocks * 1024 * kp * -(-k // kp)
+        want = "gather" if walk.nnz * k < staged else "window"
+        assert mm_design(pk, k) == want
+    # two windows full of values: the window walk stages less
+    d = np.ones((128, 2048), np.float32)
+    big = port_pack(sps.csr_matrix(d))
+    assert mm_design(big, 32) == "window"
+
