@@ -3494,6 +3494,41 @@ def main() -> int:
             if not err <= tol:
                 failures.append(f"variant spmm_bsr {case} {design}")
         del plain_c
+    # row 3 at (128,128): bf16 blocks and X (within one bf16 step of the
+    # plain version's largest output), the tile kernel's other rings and
+    # 64-column tiles (the product, at the fp32 tolerance), and the
+    # ablations (the tiles alone, the partials' sums alone: not the
+    # product)
+    case = "(128,128) n=16384 k=128"
+    base = s6_rows[("spmm_bsr", case)]
+    A16, X16 = A_big.astype(torch.bfloat16), X_big.to(torch.bfloat16)
+    plain_c = kb.spmm_bsr_grouped_reference(A16, X16).float()
+    tol = 2.0 ** -7 * max(float(plain_c.abs().max()), 1e-30)
+    err = float((kb._spmm_bsr_cuda(A16, X16).float() - plain_c).abs().max())
+    variant("spmm_bsr", case, "bf16 blocks and X",
+            dev_ms(lambda: kb._spmm_bsr_cuda(A16, X16)), base,
+            max_abs_err=err, tol=tol)
+    if not err <= tol:
+        failures.append(f"variant spmm_bsr {case} bf16")
+    del A16, X16
+    plain_c = kb.spmm_bsr_grouped_reference(A_big, X_big)
+    tol = 1e-5 * max(float(plain_c.abs().max()), 1e-30)
+    knobs = [(f"ring={r}", dict(ring=r)) for r in kb.tile_rings(128)[1:]]
+    knobs += [("tc=64", dict(tc=64)),
+              ("tc=64 split=1000", dict(tc=64, split=1000))]
+    for name, kw in knobs:
+        err = float((kb._spmm_bsr_cuda(A_big, X_big, **kw) - plain_c)
+                    .abs().max())
+        variant("spmm_bsr", case, name, dev_ms(
+            lambda kw=kw: kb._spmm_bsr_cuda(A_big, X_big, **kw)), base,
+            max_abs_err=err, tol=tol)
+        if not err <= tol:
+            failures.append(f"variant spmm_bsr {case} {name}")
+    for parts, name in ((1, "tiles alone (no sums)"), (2, "sums alone")):
+        variant("spmm_bsr", case, name, dev_ms(
+            lambda parts=parts: kb._spmm_bsr_cuda(A_big, X_big,
+                                                  parts=parts)), base)
+    del plain_c
     for label, run in [
             ("spmm XL BSR (8,8) k=128", lambda: spmm(A_xb, X_xb)),
             ("spmm BSR (128,128) n=16384 k=128", lambda: spmm(A_big, X_big)),
@@ -3537,9 +3572,9 @@ def main() -> int:
                "plane_bytes": container_bytes(P_c), "n_slabs": P_c.n_slabs}
         emit({"phase": "timing", **row})
         s7_rows[case] = row
-    # row 8's two walks forced both ways (kernels/spmm_rowlane.py
-    # mm_design), each the product held against the plain version, and
-    # the gather walk's parts (ablations: not the product)
+    # row 8's window walk (the product) and the first design's gather
+    # walk (a measurement variant), each held against the plain version,
+    # and the gather walk's parts (ablations: not the product)
     rlm = importlib.import_module("sparsematrix_tpu_torch.kernels.spmm_rowlane")
     for case, P_c, X_c, _, _ in s7_cases:
         plain_c = spmm_rowlane_reference(P_c, X_c)
@@ -3551,7 +3586,7 @@ def main() -> int:
             err = float((run() - plain_c).abs().max())
             variant("spmm_rowlane", case, f"design={design}", dev_ms(run),
                     base, max_abs_err=err, tol=tol,
-                    default=rlm.mm_design(P_c, X_c.shape[1]))
+                    default="window")
             if not err <= tol:
                 failures.append(f"variant spmm_rowlane {case} {design}")
         for part, name in ((1, "gather walk, no X read"),
@@ -3559,7 +3594,7 @@ def main() -> int:
                            (3, "gather walk, planes and compaction alone")):
             variant("spmm_rowlane", case, name, dev_ms(
                 lambda P_c=P_c, X_c=X_c, part=part: _spmm_rowlane_cuda(
-                    P_c, X_c, parts=part)), base)
+                    P_c, X_c, design="gather", parts=part)), base)
         del plain_c
     dg_local = ddg.local_dg(part_dg_full, part_dg)
     local_kernels = {

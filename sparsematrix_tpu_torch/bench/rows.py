@@ -54,12 +54,16 @@ tree sees the same ones.  The groups (all by default):
   the tree has its designs, each forced and the tile plan's splits; an
   iteration of plain ``block_cg`` on the (8, 8) BSR Poisson (device and
   wall ms, and to tol 1e-5);
+- ``tile``: row 3's tile design at (128, 128), n = 16384, k = 128, fp32
+  and bf16: the default, each ``ring``, splits, 64-column tiles, and the
+  ablations (the tiles alone, the partials' sums alone), where the tree
+  has them;
 - ``rl``: the row-lane SpMM (row 8) on the XL CSR as
   ``partition_rowlane`` packs it for one rank (fp32 and bf16 values; k =
   8, 32, 64) beside cuSPARSE at fp32 k = 32, and at the bench's
   ``spmm_csr/rowlane`` point (n = 2048, d = 0.05, k = 32) and at d =
-  0.002 (a pack the rule sends to the gather walk); where the tree
-  has them, each walk forced and the gather walk's parts; row 14 (the
+  0.002 (a sparse pack: few slabs a window); where the tree has them,
+  each walk forced and the gather walk's parts; row 14 (the
   k_tiles = 1 dual-gather walk) on the same CSR at k = 32; then
   ``dist_spmm_rowlane`` at world size 1 (NCCL) on the XL partition, beside
   its local kernel alone;
@@ -92,7 +96,7 @@ from pathlib import Path
 
 MIB128 = 128 * 1024 * 1024 // 4  # fp32 elements of the 128 MiB stream
 GROUPS = ("copy", "octet", "chain", "knobs", "cg", "fused", "walk", "bsr",
-          "sb", "rl", "bench")
+          "tile", "sb", "rl", "bench")
 
 
 def main(argv=None) -> int:
@@ -594,10 +598,58 @@ def _bsr(dev, emit, ms, wall_ms, quick=False, **_):
             16384, block, 0.1, seed), device=dev), block)
         name = f"({block[0]},{block[1]}) n=16384 k=128"
         row3(name, A_big, X_big, knobs=True)
-        if block == (128, 128) and not quick:
+        if block == (128, 128):
             row3(name + " bf16", A_big.astype(torch.bfloat16),
                  X_big.to(torch.bfloat16), knobs=True)
         del A_big
+
+
+def _tile(dev, emit, ms, **_):
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from sparsematrix_tpu_torch.formats import CSR, csr_to_bsr
+    from sparsematrix_tpu_torch.utils.testutils import gen_matrix_random
+
+    kb = importlib.import_module("sparsematrix_tpu_torch.kernels.bsr")
+    kern = kb._spmm_bsr_cuda
+    if "ring" not in inspect.signature(kern).parameters:
+        emit({"group": "tile", "skipped": "the tree's row 3 has no ring"})
+        return
+    X = torch.from_numpy(gen_matrix_random(
+        np.random.default_rng(31), 16384, 128)).to(dev)
+    A = csr_to_bsr(CSR.from_scipy(cs.block_sparse_scipy(
+        16384, (128, 128), 0.1, 30), device=dev), (128, 128))
+    for dt in (torch.float32, torch.bfloat16):
+        A_c, X_c = A.astype(dt), X.to(dt)
+        want = kb.spmm_bsr_grouped_reference(A_c, X_c).float()
+        case = f"(128,128) n=16384 k=128 {str(dt)[6:]}"
+
+        def timed(knob, **kw):
+            got = kern(A_c, X_c, **kw).float()
+            plan = kb.tile_plan(A_c, 128, kw.get("split", 0),
+                                kw.get("ring"), kw.get("tc", 0))
+            emit({"row": 3, "case": case, "knob": knob,
+                  "ms": ms(lambda: kern(A_c, X_c, **kw)),
+                  "err": float((got - want).abs().max()
+                               / want.abs().max()),
+                  "plan": {"TC": plan.TC, "ring": plan.ring,
+                           "split": plan.split,
+                           "items": int(plan.items.shape[0]),
+                           "partials": plan.n_partials, "grid": plan.grid}})
+
+        timed("default")
+        for ring in kb.tile_rings(128)[1:]:
+            timed(f"ring={ring}", ring=ring)
+        for split in (1, 2, 4, 6, 8, 1000):
+            timed(f"split={split}", split=split)
+        for split in (0, 2, 1000):
+            timed(f"tc=64 split={split}", tc=64, split=split)
+        for parts, name in ((1, "tiles alone"), (2, "sums alone")):
+            emit({"row": 3, "case": case, "knob": name,
+                  "ms": ms(lambda parts=parts: kern(A_c, X_c,
+                                                    parts=parts))})
+        del A_c, X_c, want
 
 
 def _sb(dev, emit, ms, **_):
@@ -702,15 +754,15 @@ def _rl(dev, emit, ms, wall_ms, quick=False, **_):
         if S is not None:
             r["library_ms"] = ms(lambda: S @ X)
         if designs:
-            r["design"] = rmod.mm_design(P, X.shape[1])
             walk = rmod.rowlane_mm_walk(P)
             r["walk"] = {"items": int(walk.items.shape[0]),
                          "blocks": walk.n_blocks}
             r["design_ms"] = {d: ms(lambda d=d: kern(P, X, design=d))
                               for d in rmod.DESIGNS}
         if "parts" in knobs:
-            r["gather_parts_ms"] = {p: ms(lambda p=p: kern(P, X, parts=p))
-                                    for p in (1, 2, 3)}
+            r["gather_parts_ms"] = {
+                p: ms(lambda p=p: kern(P, X, design="gather", parts=p))
+                for p in (1, 2, 3)}
         emit(r)
 
     sp_xl, _ = cs.xl_matrix()
@@ -752,7 +804,8 @@ def _rl(dev, emit, ms, wall_ms, quick=False, **_):
         torch.from_numpy(sp_b.data.astype(np.float32)),
         size=sp_b.shape).to(dev)
     row("bench spmm_csr/rowlane n=2048 d=0.05 k=32", Pb, Xb, Sb, plain=True)
-    # a pack on the gather walk's side of mm_design's rule
+    # a sparse pack: few slabs a window, each block staging a window for
+    # a handful of slabs
     sparse = gen_random_dense_sparse(np.random.default_rng(2), 2048, 2048,
                                      density=0.002)
     row("n=2048 d=0.002 k=32", pack_sell_rowlane(
@@ -787,8 +840,8 @@ def _bench(dev, emit, **_):
 
 
 _RUNS = {"copy": _copy, "octet": _octet, "chain": _chain, "knobs": _knobs,
-         "cg": _cg, "fused": _fused, "walk": _walk, "bsr": _bsr, "sb": _sb,
-         "rl": _rl, "bench": _bench}
+         "cg": _cg, "fused": _fused, "walk": _walk, "bsr": _bsr,
+         "tile": _tile, "sb": _sb, "rl": _rl, "bench": _bench}
 
 
 if __name__ == "__main__":

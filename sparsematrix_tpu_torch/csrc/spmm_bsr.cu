@@ -681,14 +681,13 @@ cudaError_t panel(const int* bcols, const int* counts, const void* panels,
 
 namespace tile {
 
-constexpr int NT = 256;    // threads: 16 (ty) x 16 (tx)
-constexpr int KC = 16;     // contraction rows a stage
-constexpr int STAGES = 3;  // cp.async ring
-constexpr int ITEM = 8;    // ints an item or a sum of the host plan
+constexpr int NT = 256;  // threads: 16 (ty) x 16 (tx)
+constexpr int ITEM = 8;  // ints an item or a sum of the host plan
 
 // Blocks an SM: the 128 x 128 tile's 64 sums a thread take one block an SM
 // (at two, 128 registers a thread, it spilled); smaller tiles two.  The
-// host plan (kernels/bsr.py tile_plan) cuts its grid to match.
+// host plan (kernels/bsr.py tile_plan) asks spmm_bsr_tile_blocks, which
+// reads what the card makes of these bounds, for its grid.
 template <int TR, int TC>
 constexpr int resident() {
   return TR * TC >= 128 * 128 ? 1 : 2;
@@ -697,15 +696,16 @@ constexpr int kSmemMax = 232448;
 
 template <typename T>
 struct Tile {
-  static constexpr int V = 16 / sizeof(T);      // elements a 16-byte copy
-  static constexpr int AS = KC + V;             // A row stride, 16 B padded
+  static constexpr int V = 16 / sizeof(T);  // elements a 16-byte copy
 };
 
-template <typename T, int TR, int TC>
+// the ring: KC contraction rows a stage, ST stages of cp.async copies
+template <typename T, int TR, int TC, int KC, int ST>
 struct Smem {
-  static constexpr int A = TR * Tile<T>::AS;   // elements of the A chunk
-  static constexpr int STAGE = A + KC * TC;    // A chunk and X chunk
-  static constexpr size_t BYTES = (size_t)STAGES * STAGE * sizeof(T);
+  static constexpr int AS = KC + Tile<T>::V;  // A row stride, 16 B padded
+  static constexpr int A = TR * AS;           // elements of the A chunk
+  static constexpr int STAGE = A + KC * TC;   // A chunk and X chunk
+  static constexpr size_t BYTES = (size_t)ST * STAGE * sizeof(T);
 };
 
 // 16 bytes by cp.async, or 16 zero bytes where `ok` is false (src-size 0:
@@ -764,23 +764,24 @@ __device__ __forceinline__ void store4(T* out, long long row, int col,
   }
 }
 
-// Stage `st` of chunk (slot, c0): rows row0 .. row0+TR of block `slot`'s
-// columns c0 .. c0+KC (As[r][kk]), and the X rows indices[slot]*bn + c0
-// .. +KC at columns col0 .. col0+TC (Xs[kk][c]); what lies past the block,
-// ncols or nrhs reads 0.  vec: 16-byte copies (bn and nrhs multiples of
-// V, both operands 16-byte aligned), else element by element.
-template <typename T, int TR, int TC>
+// Stage `st` of chunk (slot, c0), xblk = indices[slot]: rows row0 ..
+// row0+TR of block `slot`'s columns c0 .. c0+KC (As[r][kk]), and the X
+// rows xblk*bn + c0 .. +KC at columns col0 .. col0+TC (Xs[kk][c]); what
+// lies past the block, ncols or nrhs reads 0.  vec: 16-byte copies (bn and
+// nrhs multiples of V, both operands 16-byte aligned), else element by
+// element.
+template <typename T, int TR, int TC, int KC, int ST>
 __device__ __forceinline__ void load_stage(T* st, const T* __restrict__ A,
-                                           const T* __restrict__ X,
-                                           const int* __restrict__ indices,
+                                           const T* __restrict__ X, int xblk,
                                            int slot, int c0, int row0,
                                            int col0, int bm, int bn,
                                            int ncols, int nrhs, bool vec) {
-  constexpr int V = Tile<T>::V, AS = Tile<T>::AS;
+  using S = Smem<T, TR, TC, KC, ST>;
+  constexpr int V = Tile<T>::V, AS = S::AS;
   T* As = st;
-  T* Xs = st + Smem<T, TR, TC>::A;
+  T* Xs = st + S::A;
   const long long ab = (long long)slot * bm * bn;
-  const long long xr0 = (long long)__ldg(indices + slot) * bn + c0;
+  const long long xr0 = (long long)xblk * bn + c0;
   const int tid = threadIdx.x;
   if (vec) {
     constexpr int AQ = KC / V;
@@ -820,7 +821,7 @@ __device__ __forceinline__ void load_stage(T* st, const T* __restrict__ A,
 // blocks' work).  Thread (ty, tx) owns rows ty + 16 i
 // (i < TR / 16) and columns tx*4 .. +3 (and 64 + tx*4 .. +3 where TC =
 // 128) of the item's TR x TC tile.
-template <typename T, int TR, int TC>
+template <typename T, int TR, int TC, int KC, int ST>
 __global__ void __launch_bounds__(NT, (resident<TR, TC>()))
     bsr_tile(const int* __restrict__ indices, const T* __restrict__ A,
              const T* __restrict__ X, T* __restrict__ out,
@@ -828,8 +829,8 @@ __global__ void __launch_bounds__(NT, (resident<TR, TC>()))
              const int* __restrict__ block_ptr, int nrows, int ncols, int bm,
              int bn, int nrhs, int vec) {
   constexpr int RT = TR / 16, CG = TC / 64;  // rows, column groups a thread
-  constexpr int AS = Tile<T>::AS;
-  using S = Smem<T, TR, TC>;
+  using S = Smem<T, TR, TC, KC, ST>;
+  constexpr int AS = S::AS;
   extern __shared__ __align__(128) unsigned char sm_raw[];
   T* sm = reinterpret_cast<T*>(sm_raw);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -841,10 +842,19 @@ __global__ void __launch_bounds__(NT, (resident<TR, TC>()))
               col0 = __ldg(item + 2), sa = __ldg(item + 3),
               sb = __ldg(item + 4), dst = __ldg(item + 5);
     const int n_chunks = (sb - sa) * cpb;
-    auto load = [&](int t) {
-      const int slot = sa + t / cpb, c0 = (t % cpb) * KC;
-      load_stage<T, TR, TC>(sm + (t % STAGES) * S::STAGE, A, X, indices, slot,
-                            c0, row0, col0, bm, bn, ncols, nrhs, vec != 0);
+    // the next chunk to load: its number, slot, column and X row-block;
+    // the row-block of the next slot is read a chunk ahead of its copies
+    int lt = 0, ls = sa, lc = 0;
+    int lx = sa < sb ? __ldg(indices + sa) : 0;
+    auto load_next = [&]() {
+      load_stage<T, TR, TC, KC, ST>(sm + (lt % ST) * S::STAGE, A, X, lx, ls,
+                                    lc, row0, col0, bm, bn, ncols, nrhs,
+                                    vec != 0);
+      ++lt;
+      if ((lc += KC) >= bn) {
+        lc = 0;
+        if (++ls < sb) lx = __ldg(indices + ls);
+      }
     };
     float acc[RT][CG * 4];
 #pragma unroll
@@ -853,16 +863,16 @@ __global__ void __launch_bounds__(NT, (resident<TR, TC>()))
       for (int j = 0; j < CG * 4; ++j) acc[i][j] = 0.f;
     __syncthreads();  // the last item's stages are read
 #pragma unroll
-    for (int t = 0; t < STAGES - 1; ++t) {
-      if (t < n_chunks) load(t);
+    for (int t = 0; t < ST - 1; ++t) {
+      if (lt < n_chunks) load_next();
       commit();
     }
     for (int t = 0; t < n_chunks; ++t) {
-      wait<STAGES - 2>();
+      wait<ST - 2>();
       __syncthreads();  // chunk t has landed; chunk t - 1 is read
-      if (t + STAGES - 1 < n_chunks) load(t + STAGES - 1);
+      if (lt < n_chunks) load_next();
       commit();
-      const T* As = sm + (t % STAGES) * S::STAGE;
+      const T* As = sm + (t % ST) * S::STAGE;
       const T* Xs = As + S::A;
       // two contraction steps a round: the A values of 2 steps (8-byte
       // loads) and one X row at a time keep the fragments to 2 RT + 4 CG
@@ -924,9 +934,9 @@ __global__ void __launch_bounds__(NT, (resident<TR, TC>()))
 }
 
 // sums (n_sums, ITEM) int32: block-row, row0, col0, first partial tile,
-// partial count p.  Each tile's p partials are added in chunk order (p =
-// 0, an empty block-row: zeros) and written to Y, so two calls give the
-// same bits.
+// partial count p.  Block (s, y) takes elements y*NT*4 .. of sum s's tile:
+// each element's p partials are added in chunk order (p = 0, an empty
+// block-row: zeros) and written to Y, so two calls give the same bits.
 template <typename T, int TR, int TC>
 __global__ void __launch_bounds__(NT)
     bsr_tile_sum(const float* __restrict__ scratch,
@@ -935,64 +945,112 @@ __global__ void __launch_bounds__(NT)
   const int* s = sums + (long long)blockIdx.x * ITEM;
   const int brow = __ldg(s), row0 = __ldg(s + 1), col0 = __ldg(s + 2),
             base = __ldg(s + 3), p = __ldg(s + 4);
-  for (int e = threadIdx.x * 4; e < TR * TC; e += NT * 4) {
-    const int r = e / TC, c = e - r * TC;
-    const long long row = (long long)brow * bm + row0 + r;
-    const int col = col0 + c;
-    if (row0 + r >= bm || row >= nrows || col >= nrhs) continue;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < p; ++j) {
-      const float4 q = __ldcs(reinterpret_cast<const float4*>(
-          scratch + (long long)(base + j) * TR * TC + e));
-      v[0] += q.x; v[1] += q.y; v[2] += q.z; v[3] += q.w;
-    }
-    store4(out, row, col, nrhs, v);
+  const int e = (blockIdx.y * NT + threadIdx.x) * 4;
+  const int r = e / TC, c = e - r * TC;
+  const long long row = (long long)brow * bm + row0 + r;
+  const int col = col0 + c;
+  if (e >= TR * TC || row0 + r >= bm || row >= nrows || col >= nrhs) return;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int j = 0; j < p; ++j) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(
+        scratch + (long long)(base + j) * TR * TC + e));
+    v[0] += q.x; v[1] += q.y; v[2] += q.z; v[3] += q.w;
   }
+  store4(out, row, col, nrhs, v);
 }
 
-template <typename T, int TR, int TC>
-cudaError_t run(const int* indices, const void* A, const void* X, void* out,
-                float* scratch, const int* items, const int* block_ptr,
-                int grid, const int* sums, int n_sums, int nrows, int ncols,
-                int bm, int bn, int nrhs, cudaStream_t st) {
-  const T* a = static_cast<const T*>(A);
-  const T* x = static_cast<const T*>(X);
-  T* y = static_cast<T*>(out);
-  constexpr int V = Tile<T>::V;
-  const bool vec = bn % V == 0 && nrhs % V == 0 &&
-                   reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  if (grid > 0) {
-    auto kern = bsr_tile<T, TR, TC>;
-    static thread_local bool ready = false;
-    if (!ready) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-      if (e != cudaSuccess) return e;
-      ready = true;
-    }
-    kern<<<(unsigned)grid, NT, Smem<T, TR, TC>::BYTES, st>>>(
-        indices, a, x, y, scratch, items, block_ptr, nrows, ncols, bm, bn,
-        nrhs, vec ? 1 : 0);
-    const cudaError_t e = cudaGetLastError();
+// the attribute for more than 48 KB of shared memory, set once
+template <typename T, int TR, int TC, int KC, int ST>
+cudaError_t prepare() {
+  static thread_local bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bsr_tile<T, TR, TC, KC, ST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
+    ready = true;
   }
-  if (n_sums > 0)
-    bsr_tile_sum<T, TR, TC><<<(unsigned)n_sums, NT, 0, st>>>(
-        scratch, sums, y, nrows, bm, nrhs);
+  return cudaSuccess;
+}
+
+// the blocks of bsr_tile the card holds at once, or -1
+template <typename T, int TR, int TC, int KC, int ST>
+int blocks() {
+  int per = 0;
+  if (prepare<T, TR, TC, KC, ST>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, bsr_tile<T, TR, TC, KC, ST>, NT,
+          Smem<T, TR, TC, KC, ST>::BYTES) != cudaSuccess ||
+      per < 1)
+    return -1;
+  return sm_count() * per;
+}
+
+struct Args {
+  const int* indices;
+  const void* A;
+  const void* X;
+  void* out;
+  float* scratch;
+  const int* items;
+  const int* block_ptr;
+  int grid;
+  const int* sums;
+  int n_sums, nrows, ncols, bm, bn, nrhs;
+  cudaStream_t st;
+};
+
+template <typename T, int TR, int TC, int KC, int ST>
+cudaError_t run(const Args& g) {
+  const T* a = static_cast<const T*>(g.A);
+  const T* x = static_cast<const T*>(g.X);
+  T* y = static_cast<T*>(g.out);
+  constexpr int V = Tile<T>::V;
+  const bool vec = g.bn % V == 0 && g.nrhs % V == 0 &&
+                   reinterpret_cast<uintptr_t>(g.A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.X) % 16 == 0;
+  if (g.grid > 0) {
+    const cudaError_t e = prepare<T, TR, TC, KC, ST>();
+    if (e != cudaSuccess) return e;
+    bsr_tile<T, TR, TC, KC, ST>
+        <<<(unsigned)g.grid, NT, Smem<T, TR, TC, KC, ST>::BYTES, g.st>>>(
+            g.indices, a, x, y, g.scratch, g.items, g.block_ptr, g.nrows,
+            g.ncols, g.bm, g.bn, g.nrhs, vec ? 1 : 0);
+    const cudaError_t e2 = cudaGetLastError();
+    if (e2 != cudaSuccess) return e2;
+  }
+  if (g.n_sums > 0)
+    bsr_tile_sum<T, TR, TC>
+        <<<dim3((unsigned)g.n_sums, (TR * TC + NT * 4 - 1) / (NT * 4)), NT, 0,
+           g.st>>>(g.scratch, g.sums, y, g.nrows, g.bm, g.nrhs);
   return cudaGetLastError();
 }
 
+// ring 0: 16-deep chunks in 3 stages, the 32- and 64-row tiles' only
+// ring; the 128-row tiles also take 1 (32-deep, 3 stages), 2 (16-deep, 4
+// stages) and 3 (32-deep, 4 stages), their default (kernels/bsr.py
+// tile_rings).  `query` asks blocks() instead of launching: returns the
+// blocks the card holds at once, or -1.
+template <typename T, int TR, int TC>
+int ring_of(int ring, bool query, const Args& g) {
+#define SPMM_BSR_RING(R, K, S)                                        \
+  if (ring == R)                                                      \
+    return query ? blocks<T, TR, TC, K, S>() : (int)run<T, TR, TC, K, S>(g);
+  SPMM_BSR_RING(0, 16, 3)
+  if constexpr (TR == 128) {
+    SPMM_BSR_RING(1, 32, 3)
+    SPMM_BSR_RING(2, 16, 4)
+    SPMM_BSR_RING(3, 32, 4)
+  }
+#undef SPMM_BSR_RING
+  return query ? -1 : (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t dispatch(int TR, int TC, const int* indices, const void* A,
-                     const void* X, void* out, float* scratch,
-                     const int* items, const int* block_ptr, int grid,
-                     const int* sums, int n_sums, int nrows, int ncols,
-                     int bm, int bn, int nrhs, cudaStream_t st) {
-#define SPMM_BSR_TILE(R, C)                                                  \
-  if (TR == R && TC == C)                                                    \
-    return run<T, R, C>(indices, A, X, out, scratch, items, block_ptr, grid, \
-                        sums, n_sums, nrows, ncols, bm, bn, nrhs, st);
+int dispatch(int TR, int TC, int ring, bool query, const Args& g) {
+#define SPMM_BSR_TILE(R, C) \
+  if (TR == R && TC == C) return ring_of<T, R, C>(ring, query, g);
   SPMM_BSR_TILE(128, 128)
   SPMM_BSR_TILE(128, 64)
   SPMM_BSR_TILE(64, 128)
@@ -1000,7 +1058,7 @@ cudaError_t dispatch(int TR, int TC, const int* indices, const void* A,
   SPMM_BSR_TILE(32, 128)
   SPMM_BSR_TILE(32, 64)
 #undef SPMM_BSR_TILE
-  return cudaErrorInvalidValue;
+  return query ? -1 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tile
@@ -1059,31 +1117,46 @@ extern "C" int spmm_bsr_panel(const void* bcols, const void* counts,
 // The grouped product's tile design (row 3, blocks of bm >= 32): items
 // (n_items, 8), block_ptr (grid + 1) and sums (n_sums, 8) int32 of
 // kernels/bsr.py tile_plan, `grid` blocks each walking its run of items,
-// TR x TC tiles (TR 32, 64 or 128; TC 64 or 128), scratch (n_partials,
-// TR, TC) fp32; the rest as spmm_bsr.  Two launches: the items, then the
-// sums (each skipped when empty).  Returns the cudaError_t of the
-// launches.
+// TR x TC tiles (TR 32, 64 or 128; TC 64 or 128), `ring` (0; 0-3 for
+// the 128-row tiles: tile::ring_of), scratch
+// (n_partials, TR, TC) fp32; the rest as spmm_bsr.  Two launches: the
+// items, then the sums (each skipped when empty).  Returns the
+// cudaError_t of the launches.
 extern "C" int spmm_bsr_tile(const void* indices, const void* data,
                              const void* X, int bf16, void* out,
                              void* scratch, const void* items,
                              const void* block_ptr, int grid,
                              const void* sums, int n_sums, int nrows,
                              int ncols, int bm, int bn, int nrhs, int TR,
-                             int TC, void* stream) {
+                             int TC, int ring, void* stream) {
   if (nrows <= 0 || nrhs <= 0 || bm <= 0 || bn <= 0 || grid < 0 ||
       n_sums < 0)
     return (int)cudaErrorInvalidValue;
-  const auto* ind = static_cast<const int*>(indices);
-  auto* sc = static_cast<float*>(scratch);
-  const auto* it = static_cast<const int*>(items);
-  const auto* bp = static_cast<const int*>(block_ptr);
-  const auto* su = static_cast<const int*>(sums);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)tile::dispatch<__nv_bfloat16>(TR, TC, ind, data, X, out, sc,
-                                              it, bp, grid, su, n_sums, nrows,
-                                              ncols, bm, bn, nrhs, s);
-  return (int)tile::dispatch<float>(TR, TC, ind, data, X, out, sc, it, bp,
-                                    grid, su, n_sums, nrows, ncols, bm, bn,
-                                    nrhs, s);
+  const tile::Args g{static_cast<const int*>(indices),
+                     data,
+                     X,
+                     out,
+                     static_cast<float*>(scratch),
+                     static_cast<const int*>(items),
+                     static_cast<const int*>(block_ptr),
+                     grid,
+                     static_cast<const int*>(sums),
+                     n_sums,
+                     nrows,
+                     ncols,
+                     bm,
+                     bn,
+                     nrhs,
+                     static_cast<cudaStream_t>(stream)};
+  return bf16 ? tile::dispatch<__nv_bfloat16>(TR, TC, ring, false, g)
+              : tile::dispatch<float>(TR, TC, ring, false, g);
+}
+
+// The blocks of the tile design (TR x TC tiles, bf16 or fp32, `ring`) that
+// the card holds at once, all SMs together: the grid the host plan cuts
+// its items for.  -1 if the card cannot say or the shape is not built.
+extern "C" int spmm_bsr_tile_blocks(int TR, int TC, int bf16, int ring) {
+  const tile::Args g{};
+  return bf16 ? tile::dispatch<__nv_bfloat16>(TR, TC, ring, true, g)
+              : tile::dispatch<float>(TR, TC, ring, true, g);
 }

@@ -48,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import heapq
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,7 @@ from ..formats.base import (cached_on, sparse_container, static_field,
                             values_version)
 from ..formats.bsr import BSR
 from . import _build
+from ._walk import sms
 
 __all__ = ["BSRPanels", "PanelPlan", "TilePlan", "pack_bsr_panels",
            "panel_counts", "panel_plan", "tile_plan", "tile_plan_plain",
@@ -99,6 +100,7 @@ _TILE_ARGTYPES = (
     ctypes.c_int,  # nrhs
     ctypes.c_int,  # TR: rows a tile
     ctypes.c_int,  # TC: columns a tile
+    ctypes.c_int,  # ring: TILE_RINGS
     ctypes.c_void_p,  # stream
 )
 _PANEL_ARGTYPES = (
@@ -263,12 +265,36 @@ def _launch(name: str, counter: str, argtypes, args, out: torch.Tensor):
 GROUPED_DESIGNS = ("tile", "skeleton")
 _TILE_MIN_BM = 32
 _TILE_ITEMS_PER_SM = 4  # the plan's target: items an SM
+# the tile kernel's cp.async rings (csrc/spmm_bsr.cu tile::ring_of), as
+# (chunk depth, stages): 0 (16, 3), the only ring of the 32- and 64-row
+# tiles; the 128-row tiles also 1 (32, 3), 2 (16, 4) and 3 (32, 4), their
+# default (0.218 against ring 0's 0.234 ms at (128, 128), PERF.md §6)
+TILE_RINGS = (0, 1, 2, 3)
 
 
-def _tile_resident(TR: int, TC: int) -> int:
-    """Tile blocks an SM (``resident`` in ``csrc/spmm_bsr.cu``): one for
-    the 128 x 128 tile, whose 64 sums a thread spill at two, else two."""
-    return 1 if TR * TC >= 128 * 128 else 2
+def tile_rings(TR: int):
+    """The rings of a tile of TR rows, its default first."""
+    return (3, 0, 1, 2) if TR == 128 else (0,)
+_TILE_GRIDS: dict = {}
+
+
+def _tile_grid(TR: int, TC: int, dtype, ring: int, dev) -> int:
+    """The tile kernel's blocks that the card holds at once (asked of the
+    card once: ``spmm_bsr_tile_blocks``, whose bounds put one 128 x 128
+    tile an SM and two of the others); on the CPU one an SM."""
+    if dev.type != "cuda":
+        return sms(dev)
+    key = (dev.index, TR, TC, dtype, ring)
+    if key not in _TILE_GRIDS:
+        fn = _build.load("spmm_bsr", (ctypes.c_int,) * 4,
+                         "spmm_bsr_tile_blocks")
+        with torch.cuda.device(dev):
+            n = fn(TR, TC, int(dtype == torch.bfloat16), ring)
+        if n <= 0:
+            raise RuntimeError("spmm_bsr: the card's occupancy query failed "
+                               f"for the {TR} x {TC} tile, ring {ring}")
+        _TILE_GRIDS[key] = n
+    return _TILE_GRIDS[key]
 
 
 def grouped_design(A: BSR) -> str:
@@ -291,15 +317,16 @@ class TilePlan:
     writes Y (-1), the others write their partial tile.  Block b of the
     ``grid`` walks items ``block_ptr[b]`` .. ``block_ptr[b+1]``: the items,
     largest first, each given to the block with the least work so far
-    (the blocks the card holds at once: one an SM at 128 x 128, else
-    two).  ``sums`` (n_sums, 8) int32: (block-row, row0,
-    col0, first partial tile, partials, 0, 0, 0) of every tile of a
-    block-row of several chunks or none (an empty block-row: zeros), its
-    partials in chunk order."""
+    (``grid``: at most the blocks of the kernel's ``ring`` that the card
+    holds at once, ``_tile_grid``).  ``sums`` (n_sums, 8) int32:
+    (block-row, row0, col0, first partial tile, partials, 0, 0, 0) of
+    every tile of a block-row of several chunks or none (an empty
+    block-row: zeros), its partials in chunk order."""
 
     TR: int
     TC: int
     split: int
+    ring: int
     items: torch.Tensor
     sums: torch.Tensor
     n_partials: int
@@ -307,11 +334,15 @@ class TilePlan:
     grid: int
 
 
-def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
+def _tile_rows(A: BSR) -> int:
+    return next(t for t in (32, 64, 128) if t >= min(A.block_shape[0], 128))
+
+
+def _tile_plan_build(A: BSR, k: int, split: int, TC: int, ring: int,
+                     n_sms: int, grid_cap: int) -> TilePlan:
     bm, _ = A.block_shape
     nbr = A.num_block_rows
-    TR = next(t for t in (32, 64, 128) if t >= min(bm, 128))
-    TC = 64 if k <= 64 else 128
+    TR = _tile_rows(A)
     rts = np.arange(0, bm, TR)
     cts = np.arange(0, k, TC)
     indptr = A.indptr.cpu().numpy().astype(np.int64)
@@ -320,7 +351,7 @@ def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
     if not split:
         # about _TILE_ITEMS_PER_SM items an SM over the whole product
         split = max(1, -(-int(cnt.sum()) * tiles
-                          // (_TILE_ITEMS_PER_SM * sms)))
+                          // (_TILE_ITEMS_PER_SM * n_sms)))
     parts = -(-cnt // split)  # chunks a block-row (0: empty)
     items, sums = [], []
     n_partials = 0
@@ -340,7 +371,7 @@ def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
                 items.append((i, r0, c0, indptr[i], indptr[i + 1], -1, 0, 0))
     items = np.array(items, np.int64).reshape(-1, 8)
     items = items[np.argsort(items[:, 3] - items[:, 4], kind="stable")]
-    grid = min(len(items), _tile_resident(TR, TC) * sms)
+    grid = min(len(items), grid_cap)
     # largest first, each item to the block with the least work so far
     heap = [(0, b) for b in range(grid)]
     owner = np.empty(len(items), np.int64)
@@ -354,7 +385,7 @@ def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
     sums = np.array(sums, np.int64).reshape(-1, 8)
     dev = A.data.device
     return TilePlan(
-        TR=TR, TC=TC, split=split,
+        TR=TR, TC=TC, split=split, ring=ring,
         items=torch.from_numpy(items.astype(np.int32)).to(dev),
         sums=torch.from_numpy(sums.astype(np.int32)).to(dev),
         n_partials=n_partials,
@@ -365,19 +396,29 @@ def _tile_plan_build(A: BSR, k: int, split: int, sms: int) -> TilePlan:
 _TILE_PLANS: dict = {}
 
 
-def tile_plan(A: BSR, k: int, split: int = 0) -> TilePlan:
+def tile_plan(A: BSR, k: int, split: int = 0, ring: Optional[int] = None,
+              tc: int = 0) -> TilePlan:
     """The tile design's plan of ``A`` for ``k`` columns of X, ``split``
-    the most blocks a chunk (0: the rule, about 4 items an SM); built once
-    a container, state of its block index (``values_version`` of
-    ``indptr``), k's tile width and split."""
+    the most blocks a chunk (0: the rule, about 4 items an SM), ``tc`` the
+    columns a tile (0: the rule, 64 up to k = 64, else 128; 64 or 128 for
+    measurements), ``ring`` the kernel's (None: the tile's default,
+    ``tile_rings``; the ring sets the grid); built once a container,
+    state of its block index (``values_version`` of ``indptr``), k's
+    tiles, split, ring and tile width."""
+    rings = tile_rings(_tile_rows(A))
+    ring = rings[0] if ring is None else ring
+    if tc not in (0, 64, 128) or ring not in rings:
+        raise ValueError(f"spmm_bsr: tc must be 0, 64 or 128 and ring one "
+                         f"of {rings}, not {tc}, {ring}")
     plans = cached_on(_TILE_PLANS, A, lambda _: {},
                       values_version(A.indptr))
     dev = A.data.device
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else _SMS)
-    key = (64 if k <= 64 else 128, -(-k // 128), split, sms)
+    TC = tc or (64 if k <= 64 else 128)
+    grid_cap = _tile_grid(_tile_rows(A), TC, A.data.dtype, ring, dev)
+    key = (TC, -(-k // TC), split, ring, sms(dev), grid_cap)
     if key not in plans:
-        plans[key] = _tile_plan_build(A, k, split, sms)
+        plans[key] = _tile_plan_build(A, k, split, TC, ring, sms(dev),
+                                      grid_cap)
     return plans[key]
 
 
@@ -422,11 +463,13 @@ def tile_plan_plain(A: BSR, X: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 
 
 def _spmm_bsr_cuda(A: BSR, X: torch.Tensor, *, design: str = "",
-                   split: int = 0) -> torch.Tensor:
+                   split: int = 0, ring: Optional[int] = None,
+                   tc: int = 0, parts: int = 0) -> torch.Tensor:
     """The grouped kernel (row 3) in ``grouped_design(A)``'s design;
-    ``design`` ("tile" or "skeleton") and ``split`` (the tile plan's most
-    blocks a chunk, 0 the rule's) are forced for measurements and
-    tests."""
+    ``design`` ("tile" or "skeleton"), ``split``, ``tc`` (``tile_plan``'s)
+    and ``ring`` (``TILE_RINGS``) are forced for measurements and tests;
+    ``parts`` 1 (the tiles alone, no sum of the partials) or 2 (the sums
+    alone) is an ablation whose result is not the product."""
     X = _check_inputs("spmm_bsr", A.data, A.indices, X, A.shape[1])
     bm, bn = A.block_shape
     nbr = A.num_block_rows
@@ -435,9 +478,10 @@ def _spmm_bsr_cuda(A: BSR, X: torch.Tensor, *, design: str = "",
         raise ValueError(f"spmm_bsr: indptr {A.indptr.dtype} or blocks "
                          f"{tuple(A.data.shape)} do not match block shape "
                          f"{A.block_shape} and matrix {A.shape}")
-    if design not in ("",) + GROUPED_DESIGNS:
+    if design not in ("",) + GROUPED_DESIGNS or parts not in (0, 1, 2):
         raise ValueError(f"spmm_bsr: design must be one of "
-                         f"{GROUPED_DESIGNS}, not {design!r}")
+                         f"{GROUPED_DESIGNS} and parts 0-2, not {design!r}, "
+                         f"{parts}")
     out = torch.empty((A.shape[0], X.shape[1]), dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
@@ -446,15 +490,16 @@ def _spmm_bsr_cuda(A: BSR, X: torch.Tensor, *, design: str = "",
             A.indptr.data_ptr(), A.indices.data_ptr(), A.data.data_ptr(),
             X.data_ptr(), int(X.dtype == torch.bfloat16), out.data_ptr(),
             A.shape[0], A.shape[1], nbr, bm, bn, X.shape[1]), out)
-    plan = tile_plan(A, X.shape[1], split)
+    plan = tile_plan(A, X.shape[1], split, ring, tc)
     scratch = torch.empty((max(plan.n_partials, 1), plan.TR, plan.TC),
                           dtype=torch.float32, device=X.device)
     return _launch("spmm_bsr_tile", "spmm_bsr", _TILE_ARGTYPES, (
         A.indices.data_ptr(), A.data.data_ptr(), X.data_ptr(),
         int(X.dtype == torch.bfloat16), out.data_ptr(), scratch.data_ptr(),
-        plan.items.data_ptr(), plan.block_ptr.data_ptr(), plan.grid,
-        plan.sums.data_ptr(), plan.sums.shape[0], A.shape[0], A.shape[1],
-        bm, bn, X.shape[1], plan.TR, plan.TC), out)
+        plan.items.data_ptr(), plan.block_ptr.data_ptr(),
+        0 if parts == 2 else plan.grid, plan.sums.data_ptr(),
+        0 if parts == 1 else plan.sums.shape[0], A.shape[0], A.shape[1],
+        bm, bn, X.shape[1], plan.TR, plan.TC, plan.ring), out)
 
 
 # the panel kernel's designs (csrc/spmm_bsr.cu): a thread a (row, column
@@ -463,7 +508,6 @@ def _spmm_bsr_cuda(A: BSR, X: torch.Tensor, *, design: str = "",
 DESIGNS = {"narrow": 1, "wide": 2}
 _NARROW_MAX_K = 32
 _STAGE_ELEMS = 1024  # panel values a wide stage: about 4 KB of fp32
-_SMS = 132  # the H100's SMs: the wide plan's count on the CPU
 
 
 def _counts_build(P: BSRPanels) -> torch.Tensor:
@@ -535,12 +579,10 @@ def panel_plan(P: BSRPanels, k: int, design: str = "") -> PanelPlan:
         return PanelPlan("narrow", _widest(k, (vmax, 4, 2, 1)))
     rt = next(r for r in (1, 2, 4, 8) if r >= min(bm, 8))
     sc = int(np.clip(_STAGE_ELEMS // (rt * bn), 1, M))
-    dev = P.panels.device
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else _SMS)
+    n_sms = sms(P.panels.device)
     v = next(v for v in (4, 2, 1) if v == 1 or (
         k % v == 0 and v <= k // 32
-        and PanelPlan("wide", v, rt, sc).items(nbr, bm, k) >= 2 * sms))
+        and PanelPlan("wide", v, rt, sc).items(nbr, bm, k) >= 2 * n_sms))
     return PanelPlan("wide", v, rt, sc)
 
 

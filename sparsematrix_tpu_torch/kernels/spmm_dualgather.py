@@ -37,6 +37,7 @@ import torch
 
 from ..formats.base import cached_on, values_version
 from . import _build
+from ._walk import sms, team_parts, window_cut
 from .spmv_dualgather import (_LANES, _W, DualGather, _check_pack, _dvals,
                               _idxA_slabs, _slab_tiles, _slab_windows,
                               _slot_row_col, _slot_row_col_pooled,
@@ -77,15 +78,7 @@ def spmm_dualgather_reference(packed: DualGather,
 STEPS = (1, 2, 3)
 WALK_STEP = 3  # the default
 _TEAMS = {1: 1, 2: 4, 3: 4}  # teams of four warps a block
-_SMS = 132  # the H100's SMs: the cut of a pack on the CPU
 _ITEM_CHUNK = 8192  # items a step of slab_walk_plain
-
-
-def _sms(dev: torch.device) -> int:
-    """The SMs that the walk is cut for: the card's own count."""
-    if dev.type != "cuda":
-        return _SMS
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,71 +112,21 @@ def _walk_items(packed: DualGather):
     return tuple(t.cpu().numpy().astype(np.int64) for t in (s, tile, win))
 
 
-def _share(wlen: np.ndarray, total: int) -> np.ndarray:
-    """Blocks of each window: about ``total`` in all, at least one and at
-    most its slabs a window, in proportion to the windows' slabs (the
-    largest remainders take the rest)."""
-    exact = wlen * (max(total, len(wlen)) / wlen.sum())
-    per = np.maximum(np.floor(exact).astype(np.int64), 1)
-    left = max(total, len(wlen)) - int(per.sum())
-    if left > 0:
-        per[np.argsort(per - exact, kind="stable")[:left]] += 1
-    return np.minimum(per, wlen)
-
-
-def window_cut(s: np.ndarray, tile: np.ndarray, win: np.ndarray,
-               teams: int, sms: int, spb: int = 0):
-    """A walk window by window: the slabs ``s`` (with their ``tile`` and
-    window word ``win``, int64) ordered by window, then tile, then slab,
-    and cut into blocks each inside one window: about ``spb`` slabs a
-    block, or (``spb`` 0) about ``sms`` blocks shared among the windows
-    by their slabs (``_share``); each block's slabs cut into ``teams``
-    parts of equal counts.  Returns (items (n, 4) int32 of (slab, tile,
-    window, 0), part_ptr (n_blocks·teams + 1,) int32, n_blocks)."""
-    n = len(s)
-    if n == 0:
-        block_of = s
-    else:
-        order = np.lexsort((s, tile, win))
-        s, tile, win = s[order], tile[order], win[order]
-        wstart = np.r_[0, np.flatnonzero(np.diff(win)) + 1]
-        wlen = np.diff(np.r_[wstart, n])
-        wid = np.repeat(np.arange(len(wlen)), wlen)
-        first = wstart[wid]
-        per = -(-wlen // spb) if spb else _share(wlen, sms)
-        sz = -(-wlen // per)
-        block_of = (np.r_[0, np.cumsum(per)][wid]
-                    + (np.arange(n) - first) // sz[wid])
-    return _team_parts(s, tile, win, block_of, teams)
-
-
-def _team_parts(s, tile, win, block_of, teams):
-    n = len(s)
-    n_blocks = int(block_of[-1]) + 1 if n else 0
-    bstart = np.searchsorted(block_of, np.arange(n_blocks + 1))
-    # each block's slabs cut into `teams` parts of equal counts
-    q = np.arange(teams + 1)
-    cnt = np.diff(bstart)
-    part = (bstart[:-1, None] + (cnt[:, None] * q[None, :]) // teams)
-    part_ptr = np.r_[part[:, :-1].reshape(-1), n].astype(np.int32)
-    items = np.stack([s, tile, win, np.zeros_like(s)], 1).astype(np.int32)
-    return items, part_ptr, n_blocks
-
-
 def _slab_walk_build(packed: DualGather, step: int,
                      spb: int = 0) -> SlabWalk:
     s, tile, win = _walk_items(packed)
     teams = _TEAMS[step]
-    sms = _sms(packed.vals.device)
+    n_sms = sms(packed.vals.device)
     if step == 1:
         # contiguous slabs a block, as the first design cut them
-        spb = spb or int(np.clip(-(-len(s) // (8 * sms)), 1, 16))
-        items, part_ptr, n_blocks = _team_parts(
+        spb = spb or int(np.clip(-(-len(s) // (8 * n_sms)), 1, 16))
+        items, part_ptr, n_blocks = team_parts(
             s, tile, win, np.arange(len(s)) // spb, teams)
     else:
         # blocks within one window each: about spb slabs a block, or one
         # block an SM shared among the windows
-        items, part_ptr, n_blocks = window_cut(s, tile, win, teams, sms, spb)
+        items, part_ptr, n_blocks = window_cut(s, tile, win, teams, n_sms,
+                                               spb)
     dev = packed.vals.device
     return SlabWalk(items=torch.from_numpy(items).to(dev),
                     part_ptr=torch.from_numpy(part_ptr).to(dev),

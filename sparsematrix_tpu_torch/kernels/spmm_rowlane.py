@@ -19,15 +19,15 @@ and X lie on the CPU, and otherwise launches the kernel or raises.  Both
 multiply and add in fp32 (the Pallas body multiplies in the operands'
 type, so with bf16 values and bf16 X its products round to bf16 first).
 
-The kernel has two walks (``csrc/spmm_rowlane.cu``), picked on the host
-by ``mm_design``: the window walk (the default) over ``rowlane_mm_walk``,
-the pack's slabs that hold a value listed window by window and tile by
-tile and cut into about one block an SM, each block staging its window's
-rows of X in shared memory; and the first design's gather walk, which
-reads each kept slot's X row from L2, for packs whose walk would gather
-fewer X bytes than the window walk would stage.  Neither reads an X row
-under a zero value, so an inf or NaN of X there gives 0 on the card,
-where the plain version gives NaN (ROADMAP, deliberate differences).
+The kernel walks ``rowlane_mm_walk`` (``csrc/spmm_rowlane.cu``
+``spmm_rowlane_window``): the pack's slabs that hold a value listed window
+by window and tile by tile and cut into about one block an SM, each block
+staging its window's rows of X in shared memory.  The first design, the
+gather walk (``spmm_rowlane``: each kept slot's X row read from L2), is
+kept only as a measurement variant (``design="gather"`` and its ablations
+``parts``).  Neither reads an X row under a zero value, so an inf or NaN
+of X there gives 0 on the card, where the plain version gives NaN
+(ROADMAP, deliberate differences).
 """
 from __future__ import annotations
 
@@ -39,11 +39,11 @@ import torch
 
 from ..formats.base import cached_on, values_version
 from . import _build
-from .spmm_dualgather import _sms, window_cut
+from ._walk import sms, window_cut
 from .spmv_rowlane import _LANES, _W, SellRowLane
 
 __all__ = ["spmm_rowlane", "spmm_rowlane_reference", "rowlane_mm_walk",
-           "rowlane_mm_walk_plain", "mm_design"]
+           "rowlane_mm_walk_plain"]
 
 # gathered X elements a step of the plain walk (its (n, 8, 128, k)
 # temporary): 64 MB of fp32
@@ -97,7 +97,7 @@ def spmm_rowlane_reference(packed: SellRowLane,
 # the window walk's plan
 # ---------------------------------------------------------------------------
 
-DESIGNS = ("window", "gather")
+DESIGNS = ("window", "gather")  # the product, the measurement variant
 _TEAMS = 4  # teams of four warps a window-walk block
 _ITEM_CHUNK = 8192  # items a step of rowlane_mm_walk_plain
 
@@ -128,7 +128,7 @@ def _walk_build(packed: SellRowLane) -> RowlaneMmWalk:
     win = packed.slab_win.reshape(-1)[s].long()
     s, tile, win = (t.cpu().numpy().astype(np.int64) for t in (s, tile, win))
     items, part_ptr, n_blocks = window_cut(s, tile, win, _TEAMS,
-                                           _sms(packed.vals.device))
+                                           sms(packed.vals.device))
     dev = packed.vals.device
     return RowlaneMmWalk(items=torch.from_numpy(items).to(dev),
                          part_ptr=torch.from_numpy(part_ptr).to(dev),
@@ -183,17 +183,6 @@ def panel_width(k: int) -> int:
     return 8 if k <= 8 else 16 if k <= 16 else 32
 
 
-def mm_design(packed: SellRowLane, k: int) -> str:
-    """The walk for ``k`` columns of X: ``"gather"`` where the gather walk
-    would read fewer X elements from L2 (k a kept slot) than the window
-    walk would stage (1024 rows of each panel a block), else
-    ``"window"``."""
-    walk = rowlane_mm_walk(packed)
-    kp = panel_width(k)
-    staged = walk.n_blocks * _W * kp * -(-k // kp)
-    return "gather" if walk.nnz * k < staged else "window"
-
-
 _ARGTYPES = (
     ctypes.c_void_p,  # s_idx int8
     ctypes.c_void_p,  # vals fp32 or bf16
@@ -230,12 +219,13 @@ _WINDOW_ARGTYPES = (
 
 
 def _spmm_rowlane_cuda(packed: SellRowLane, X: torch.Tensor, *,
-                       design: str = "", parts: int = 0) -> torch.Tensor:
+                       design: str = "window",
+                       parts: int = 0) -> torch.Tensor:
     """The kernel (no plain fallback): raises unless the pack and X are
-    contiguous on one CUDA device.  ``design`` ("window" or "gather", ""
-    the rule of ``mm_design``) and ``parts`` (the gather walk's ablations
-    1-3, whose result is not the product; 0 the product) are forced for
-    measurements only."""
+    contiguous on one CUDA device.  ``design="gather"`` (the first design)
+    and ``parts`` (the gather walk's ablations 1-3, whose result is not
+    the product; 0 the product) are for measurements only: the product
+    takes the window walk."""
     _check(packed, X)
     rows, cols = packed.shape
     planes = (packed.s_idx, packed.vals, packed.group_tile, packed.slab_win)
@@ -251,8 +241,8 @@ def _spmm_rowlane_cuda(packed: SellRowLane, X: torch.Tensor, *,
             or packed.group_tile.shape != (n_groups,)
             or packed.slab_win.numel() != n_groups * group):
         raise ValueError("spmm_rowlane: inconsistent pack planes")
-    if design not in ("",) + DESIGNS or parts not in (0, 1, 2, 3) or (
-            parts and design == "window"):
+    if design not in DESIGNS or parts not in (0, 1, 2, 3) or (
+            parts and design != "gather"):
         raise ValueError(f"spmm_rowlane: design must be one of {DESIGNS} "
                          f"and parts 0-3 (the gather walk's), not "
                          f"{design!r}, {parts}")
@@ -263,9 +253,6 @@ def _spmm_rowlane_cuda(packed: SellRowLane, X: torch.Tensor, *,
     X = X.contiguous()
     if X.data_ptr() % 16:
         X = X.clone()  # a fresh allocation: the window is staged by 16 bytes
-    if parts:
-        design = "gather"
-    design = design or mm_design(packed, k)
     vbf, xbf = (int(packed.vals.dtype == torch.bfloat16),
                 int(X.dtype == torch.bfloat16))
     stream = torch.cuda.current_stream(X.device).cuda_stream

@@ -562,6 +562,7 @@ def test_tile_plan_covers_every_block_once(block, k, split):
     plan = tbp.tile_plan(A, k, split)
     bm, _ = block
     assert plan.TR == min(bm, 128) and plan.TC == (64 if k <= 64 else 128)
+    assert plan.ring == (3 if bm == 128 else 0)
     indptr = A.indptr.numpy()
     items = plan.items.numpy()
     sums = {tuple(r[:3]): (r[3], r[4]) for r in plan.sums.numpy()}
@@ -596,8 +597,8 @@ def test_tile_plan_covers_every_block_once(block, k, split):
     # every item in one block's run; no block's work above the least
     # loaded block's by more than the largest item
     ptr = plan.block_ptr.numpy()
-    resident = 1 if plan.TR * plan.TC == 128 * 128 else 2
-    assert 1 <= plan.grid <= resident * 132 and len(ptr) == plan.grid + 1
+    # on the CPU the plan is cut for one block an SM of the H100's 132
+    assert 1 <= plan.grid <= 132 and len(ptr) == plan.grid + 1
     assert ptr[0] == 0 and ptr[-1] == len(items) and np.all(np.diff(ptr) > 0)
     size = items[:, 4] - items[:, 3]
     load = np.add.reduceat(size, ptr[:-1])
@@ -609,6 +610,30 @@ def test_tile_plan_covers_every_block_once(block, k, split):
     np.testing.assert_allclose(got.numpy(), dense.astype(np.float64)
                                @ X.double().numpy(), **TOL)
     assert not got[bm: 2 * bm].any()
+
+
+@pytest.mark.parametrize("tc", [64, 128])
+def test_tile_plan_column_width(tc):
+    """The tile width forced (a measurement knob): k = 129 in tiles of
+    ``tc`` columns, every tile of every block-row planned, the sum the
+    product; a width or ring the kernel lacks is refused (the 32- and
+    64-row tiles have one ring)."""
+    dense, A, X = tile_case((128, 128), 129)
+    plan = tbp.tile_plan(A, 129, 0, tc=tc)
+    assert plan.TC == tc
+    tiles = {tuple(r) for r in plan.items.numpy()[:, 1:3]}
+    assert tiles == {(0, c0) for c0 in range(0, 129, tc)}
+    np.testing.assert_allclose(tbp.tile_plan_plain(A, X, plan).numpy(),
+                               tbp.spmm_bsr_grouped_reference(A, X).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="tc must be"):
+        tbp.tile_plan(A, 129, 0, tc=32)
+    with pytest.raises(ValueError, match="ring"):
+        tbp.tile_plan(A, 129, 0, ring=4)
+    _, A64, _ = tile_case((64, 64), 33)
+    assert tbp.tile_plan(A64, 33).ring == 0
+    with pytest.raises(ValueError, match="ring"):
+        tbp.tile_plan(A64, 33, 0, ring=3)
 
 
 def test_tile_plan_bf16_and_rule():

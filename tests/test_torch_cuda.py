@@ -1955,6 +1955,34 @@ def test_bsr_tile_design(dev, block, k, dtype):
     assert_kernel_close(kb._spmm_bsr_cuda(A, X, design="skeleton"), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [33, 129])
+def test_bsr_tile_knobs(dev, k, dtype):
+    """Row 3's measurement knobs on the 128-row tiles: every ring and both
+    tile widths give the product (against the plain version, bit-equal
+    from call to call); the ablations (the tiles alone, the sums alone)
+    launch."""
+    from sparsematrix_tpu_torch.kernels import bsr as kb
+
+    block = (128, 128)
+    shape = (5 * 128 - 3, 6 * 128 - 5)
+    _, A = _bsr_case(256 + k, shape, block, 0.5, dev, None, 1)
+    A = A.astype(dtype)
+    X = torch.from_numpy(gen_matrix_random(np.random.default_rng(k),
+                                           shape[1], k)).to(dev, dtype)
+    want = kb.spmm_bsr_grouped_reference(A, X)
+    for kw in [dict(ring=r) for r in kb.TILE_RINGS] + [
+            dict(tc=64), dict(tc=128), dict(tc=64, split=1000)]:
+        Y = kb._spmm_bsr_cuda(A, X, **kw)
+        assert_kernel_close(Y, want)
+        assert torch.equal(Y, kb._spmm_bsr_cuda(A, X, **kw)), kw
+    for parts in (1, 2):
+        _build.launch_counts.clear()
+        assert kb._spmm_bsr_cuda(A, X, split=1, parts=parts).shape == want.shape
+        torch.cuda.synchronize()
+        assert _build.launch_counts["spmm_bsr"] == 1
+
+
 def test_bsr_gradients_on_card(dev):
     """``spmm_bsr``'s backward pass on the card: fp64 ``denseᵀ @ g`` and
     ``g @ Xᵀ`` on the stored blocks, padding slots' gradients zero."""
@@ -2082,7 +2110,8 @@ def _rowlane_mm_windows(dev, vdt=torch.float32):
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 70])
 def test_rowlane_spmm_designs(dev, k, vdt, xdt, design):
-    """Row 8's two walks, each forced, on a pack of several windows and
+    """Row 8's window walk (the product) and the gather walk (its
+    measurement variant), each forced, on a pack of several windows and
     tiles: against the plain version, fp64 (of the bf16-rounded values and
     X where they are bf16), and the untouched tile zero."""
     rmod = importlib.import_module(
@@ -2129,10 +2158,12 @@ def test_rowlane_spmm_gather_parts(dev):
         "sparsematrix_tpu_torch.kernels.spmm_rowlane")
     dense, P = _rowlane_mm_windows(dev)
     X = torch.randn((dense.shape[1], 40), device=dev)
-    assert_kernel_close(rmod._spmm_rowlane_cuda(P, X, parts=1),
+    assert_kernel_close(rmod._spmm_rowlane_cuda(P, X, design="gather",
+                                                parts=1),
                         rmod.spmm_rowlane_reference(P, torch.ones_like(X)))
     for part in (2, 3):
-        assert not bool(rmod._spmm_rowlane_cuda(P, X, parts=part).any())
+        assert not bool(rmod._spmm_rowlane_cuda(P, X, design="gather",
+                                                parts=part).any())
     with pytest.raises(ValueError, match="parts"):
         rmod._spmm_rowlane_cuda(P, X, design="window", parts=1)
 

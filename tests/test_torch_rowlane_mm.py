@@ -31,7 +31,7 @@ from sparsematrix_tpu.kernels.spmm_rowlane import spmm_rowlane as jax_spmm
 from sparsematrix_tpu.kernels.spmv_rowlane import pack_sell_rowlane as jpack
 from sparsematrix_tpu_torch.kernels import _build
 from sparsematrix_tpu_torch.kernels.spmm_rowlane import (
-    mm_design, rowlane_mm_walk, rowlane_mm_walk_plain, spmm_rowlane,
+    rowlane_mm_walk, rowlane_mm_walk_plain, spmm_rowlane,
     spmm_rowlane_reference)
 from sparsematrix_tpu_torch.utils.testutils import gen_random_dense_sparse
 
@@ -232,19 +232,17 @@ def test_window_walk_rebuilt_after_value_write():
                                rtol=1e-5, atol=1e-3)
 
 
-def test_mm_design_rule():
-    """The gather walk where it reads fewer X elements than the window
-    walk would stage (1024 rows of a panel a block), else the window
-    walk."""
-    pk = port_pack(matrix("windows"))
+def test_window_walk_without_values():
+    """A pack whose values are all zero (written in place) walks no slab:
+    no block, one team pointer, and a zero sum."""
+    sp = matrix("96x1024")
+    pk = port_pack(sp)
+    assert rowlane_mm_walk(pk).n_blocks
+    pk.vals.zero_()
     walk = rowlane_mm_walk(pk)
-    for k in (1, 8, 16, 32, 33, 64):
-        kp = 8 if k <= 8 else 16 if k <= 16 else 32
-        staged = walk.n_blocks * 1024 * kp * -(-k // kp)
-        want = "gather" if walk.nnz * k < staged else "window"
-        assert mm_design(pk, k) == want
-    # two windows full of values: the window walk stages less
-    d = np.ones((128, 2048), np.float32)
-    big = port_pack(sps.csr_matrix(d))
-    assert mm_design(big, 32) == "window"
-
+    assert walk.n_blocks == 0 and walk.nnz == 0
+    assert walk.items.shape == (0, 4)
+    np.testing.assert_array_equal(walk.part_ptr.numpy(), [0])
+    X = torch.from_numpy(rhs(sp.shape[1], 4))
+    got = rowlane_mm_walk_plain(pk, X)
+    assert got.shape == (sp.shape[0], 4) and not bool(got.any())

@@ -468,7 +468,7 @@ def test_chain_kernel_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("groups", ["copy,octet", "chain,knobs", "cg", "bsr,sb",
-                                    "rl"])
+                                    "rl", "tile"])
 def test_rows_chain_groups_need_a_card(monkeypatch, groups):
     """``bench/rows.py``'s groups (rows 19 and 21's among them) print no
     times without a CUDA card; an unknown group is refused."""
